@@ -1,10 +1,10 @@
 """ctypes wrapper of the native BVH core. Counterpart: idkengine_tpu/bvh/builder.py.
 
-The library is compiled from the JAX package's source file
-(`idkengine_tpu/bvh/cpp/bvh.cpp`, read by path; nothing of that package is
-imported) with the flags of its Makefile, into the port's `build/`
-directory. There is no numpy fallback builder: without a C++ compiler the
-build raises.
+The library is compiled from the port's own copy of the C++ core
+(`cpp/bvh.cpp` beside this module, byte for byte the JAX package's
+`bvh/cpp/bvh.cpp`) with the flags of that package's Makefile, into the
+repository's ignored `build/` directory. There is no numpy fallback builder:
+without a C++ compiler the build raises.
 
 Node layout (32 B):
     min[3] f32 | left_or_first u32 | max[3] f32 | count u32
@@ -19,10 +19,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..ops._build import REPO_DIR, build_shared_library
+from ..ops._build import build_shared_library
 
-BVH_SOURCE = os.path.join(REPO_DIR, "idkengine_tpu", "bvh", "cpp", "bvh.cpp")
-# CXXFLAGS of idkengine_tpu/bvh/cpp/Makefile
+BVH_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cpp", "bvh.cpp")
+# CXXFLAGS of the JAX package's bvh/cpp/Makefile
 CXX_COMMAND = ["g++", "-O3", "-march=native", "-ffast-math", "-std=c++17",
                "-fPIC", "-shared", "-Wall", "-pthread"]
 

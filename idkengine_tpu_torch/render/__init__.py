@@ -1,2 +1,3 @@
 from .camera import Camera  # noqa: F401
 from .pathtracer import PathTracer, PathTracerSettings  # noqa: F401
+from .pipeline import DeferredPipeline, DeferredSettings2  # noqa: F401

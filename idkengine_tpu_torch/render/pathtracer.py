@@ -93,7 +93,7 @@ class PathTracer:
 
     def __init__(self, scene: SceneArrays, materials: dict, lights: dict,
                  width: int, height: int, settings: PathTracerSettings | None = None,
-                 env_map=None, instances=None, slot_shading=None, *, device):
+                 env_map=None, instances=None, slot_shading=None, *, device="cuda"):
         for arg, what in ((env_map, "env_map"), (instances, "instances"),
                           (slot_shading, "slot_shading")):
             if arg is not None:

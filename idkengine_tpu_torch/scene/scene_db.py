@@ -63,9 +63,10 @@ class SceneDatabase:
                     node.translation, node.rotation, node.scale = tr, q, s
         self.models.append(model)
 
-    def build(self, device) -> SceneArrays:
+    def build(self, device="cuda") -> SceneArrays:
         """Concatenate all models, build the merged BLAS, thread it, flatten
-        the triangles into its slot order and put the arrays on `device`."""
+        the triangles into its slot order and put the arrays on `device`
+        (the card unless the caller asks for the CPU)."""
         verts, idx, norms, uvs, tri_mat = [], [], [], [], []
         voff = 0
         for model in self.models:

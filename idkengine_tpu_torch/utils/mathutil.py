@@ -1,11 +1,39 @@
 """Host-side math helpers (numpy). Counterpart: idkengine_tpu/utils/mathutil.py.
 
-Carried over as numpy code: the subset the path-traced slice uses (vector
-normalisation, TRS compose/decompose for model nodes).
+Carried over as numpy code: the subset the ported slices use (vector
+normalisation, TRS compose/decompose for model nodes, the Halton sequence of
+the TAA jitter).
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# Low-discrepancy sequences
+# ---------------------------------------------------------------------------
+
+def halton(index: int | np.ndarray, base: int) -> np.ndarray:
+    """Radical-inverse Halton sequence member(s). index is 0-based.
+
+    Used for TAA sub-pixel jitter (ref: MyMath.cs:116-136)."""
+    index = np.asarray(index, dtype=np.int64) + 1  # skip the 0 sample
+    result = np.zeros(index.shape, dtype=np.float64)
+    f = np.ones(index.shape, dtype=np.float64)
+    i = index.copy()
+    # enough iterations for any int32 index in any base >= 2
+    for _ in range(63):
+        active = i > 0
+        f = np.where(active, f / base, f)
+        result = np.where(active, result + f * (i % base), result)
+        i = np.where(active, i // base, i)
+    return result
+
+
+def halton_2d(n: int) -> np.ndarray:
+    """(n, 2) array of Halton(2,3) points in [0,1)^2 (TAA jitter sequence)."""
+    idx = np.arange(n)
+    return np.stack([halton(idx, 2), halton(idx, 3)], axis=-1).astype(np.float32)
 
 
 def normalize(v: np.ndarray, eps: float = 1e-20) -> np.ndarray:

@@ -1,8 +1,12 @@
-"""CUDA trace kernel vs its plain version, on the card (marker `cuda`; run
+"""CUDA kernels vs their plain versions, on the card (marker `cuda`; run
 with `python -m pytest tests/test_torch_*.py -m cuda`). Without a card
 these tests skip.
 
-The kernel is built with -fmad=false and performs the plain version's float
+Scatter-max: the max of a set of floats does not depend on the order of
+the atomics, so the kernel equals its plain version exactly.
+
+Traversal:
+the kernel is built with -fmad=false and performs the plain version's float
 operations in the same order, so t, u and v agree bit for bit wherever both
 pick the same triangle. Slots may differ only at ties (two triangles at the
 same t, met in another order: the kernel visits near children first, the
@@ -15,6 +19,7 @@ import torch
 from idkengine_tpu_torch.bvh.builder import BuildSettings
 from idkengine_tpu_torch.ops import packet_trace as kern
 from idkengine_tpu_torch.ops import trace as plain
+from idkengine_tpu_torch.ops import voxel_scatter as vs
 from idkengine_tpu_torch.render import Camera, PathTracer, PathTracerSettings
 from idkengine_tpu_torch.scene.procedural import atrium
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase
@@ -114,3 +119,87 @@ def test_pathtracer_on_card_matches_cpu(dev, scenes):
     # traced on one and not the other
     rays_gpu, rays_cpu = float(pt_gpu.last_rays_traced), float(pt_cpu.last_rays_traced)
     assert abs(rays_gpu - rays_cpu) <= 1e-3 * rays_cpu
+
+
+def _updates(kind, seed=0):
+    """(cell (N,) int32, vals (C,N) float32, n_cells) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    if kind == "random_with_out_of_range":
+        n_cells = 2048
+        cell = rng.integers(-300, n_cells + 300, 700)
+        vals = rng.uniform(0, 10, (4, 700))
+    elif kind == "one_cell":  # every update lands in one cell
+        n_cells = 4096
+        cell = np.full(999, 77)
+        vals = np.linspace(0, 5, 999 * 2).reshape(2, 999)
+    return cell.astype(np.int32), vals.astype(np.float32), n_cells
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", ["random_with_out_of_range", "one_cell"])
+def test_scatter_kernel_equals_plain(dev, kind, bf16):
+    cell, vals, n_cells = _updates(kind)
+    c, v = torch.from_numpy(cell), torch.from_numpy(vals)
+    before = vs.scatter_max_dense.launches
+    got = vs.scatter_max_dense(c.to(dev), v.to(dev), n_cells, bf16=bf16)
+    torch.cuda.synchronize()
+    assert vs.scatter_max_dense.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  vs.scatter_max_dense_plain(c, v, n_cells, bf16).numpy())
+
+
+def test_scatter_kernel_at_voxelizer_width(dev):
+    """2^20 updates into a 256^3 grid, many per cell, with zeros and -0.0."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, n_cells = 1 << 20, 256 ** 3
+    cell = torch.randint(0, n_cells // 64, (n,), generator=g, device=dev, dtype=torch.int32)
+    vals = torch.rand((4, n), generator=g, device=dev) * 50.0
+    vals[:, ::7] = 0.0
+    vals[:, 3::11] = -0.0
+    for bf16 in (False, True):
+        got = vs.scatter_max_dense(cell, vals, n_cells, bf16=bf16)
+        want = vs.scatter_max_dense_plain(cell, vals, n_cells, bf16)
+        assert torch.equal(got, want)
+        assert not torch.signbit(got).any()
+
+
+def test_scatter_kernel_refuses_bad_inputs(dev):
+    cell = torch.zeros(8, dtype=torch.int32, device=dev)
+    vals = torch.ones((4, 8), device=dev)
+    with pytest.raises(TypeError):
+        vs.scatter_max_dense(cell.long(), vals, 64)
+    with pytest.raises(TypeError):
+        vs.scatter_max_dense(cell, vals.double(), 64)
+    with pytest.raises(ValueError):
+        vs.scatter_max_dense(cell, vals.t().contiguous().t(), 64)
+    with pytest.raises(ValueError):
+        vs.scatter_max_dense(cell.cpu(), vals, 64)
+
+
+def test_deferred_pipeline_on_card_matches_cpu(dev):
+    """VXGI (bf16 grid on the card, f32 on the CPU), SSAO, TAA, bloom and
+    ray-traced shadows over two frames; the card's frame goes through both
+    kernels."""
+    from idkengine_tpu_torch.render import DeferredPipeline, DeferredSettings2
+    from idkengine_tpu_torch.render.vxgi import VxgiSettings
+
+    cam = Camera(position=np.array([0.0, 3.0, 24.0], np.float32), yaw=-90.0, fov_y=65.0)
+    imgs = []
+    for device in (dev, "cpu"):
+        db = SceneDatabase(BuildSettings(**BUILD))
+        db.add_model(atrium(8000))
+        db.build(device)
+        db.lights.add([0.0, 10.5, 0.0], [40.0, 38.0, 35.0], radius=0.8)
+        db.lights.add([6.0, 4.0, -20.0], [20.0, 10.0, 5.0], radius=0.5)
+        pipe = DeferredPipeline(db, 64, 48, DeferredSettings2(
+            use_vxgi=True, vxgi=VxgiSettings(resolution=32)), device=device)
+        kern.reset_launch_counts()
+        vs.reset_launch_counts()
+        for _ in range(2):
+            img = pipe.render_frame(cam)
+        imgs.append(img.cpu().numpy())
+        if device == dev:
+            assert vs.scatter_max_dense.launches == 2
+            assert kern.trace_closest.launches == 2 and kern.trace_any.launches == 8
+    assert np.isfinite(imgs[0]).all() and imgs[0].std() > 0.01
+    assert float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2))) <= 1e-3

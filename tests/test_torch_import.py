@@ -1,11 +1,19 @@
 """The port stands apart from the JAX package: importing it loads no jax,
-and no module of it imports jax or idkengine_tpu."""
+no module of it imports jax or idkengine_tpu, every source it compiles lies
+inside it, and its entry points run on the card unless asked otherwise."""
+import glob
+import inspect
 import os
 import re
 import subprocess
 import sys
 
 import idkengine_tpu_torch
+from idkengine_tpu_torch.bvh import builder
+from idkengine_tpu_torch.ops import packet_trace, voxel_scatter
+from idkengine_tpu_torch.render import DeferredPipeline, PathTracer
+from idkengine_tpu_torch.render.vxgi import VoxelGrid
+from idkengine_tpu_torch.scene.scene_db import SceneDatabase
 
 PKG = os.path.dirname(idkengine_tpu_torch.__file__)
 REPO = os.path.dirname(PKG)
@@ -14,7 +22,9 @@ REPO = os.path.dirname(PKG)
 def test_import_leaves_jax_out():
     code = ("import sys, idkengine_tpu_torch\n"
             "import idkengine_tpu_torch.render, idkengine_tpu_torch.render.tonemap\n"
+            "import idkengine_tpu_torch.render.pipeline, idkengine_tpu_torch.render.vxgi\n"
             "import idkengine_tpu_torch.scene.scene_db, idkengine_tpu_torch.ops.packet_trace\n"
+            "import idkengine_tpu_torch.ops.voxel_scatter, idkengine_tpu_torch.bvh.builder\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'idkengine_tpu')]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": REPO}
@@ -31,3 +41,21 @@ def test_no_module_imports_jax():
                     if pat.search(fh.read()):
                         offenders.append(f)
     assert not offenders
+
+
+def test_compiled_sources_lie_inside_the_port():
+    sources = [builder.BVH_SOURCE, packet_trace.TRACE_SOURCE,
+               voxel_scatter.VOXEL_SCATTER_SOURCE, *glob.glob(os.path.join(PKG, "csrc", "*"))]
+    pkg = os.path.realpath(PKG) + os.sep
+    for src in sources:
+        assert os.path.isfile(src), src
+        assert os.path.realpath(src).startswith(pkg), src
+    # every kernel source in csrc/ is one that a wrapper builds
+    assert sorted(glob.glob(os.path.join(PKG, "csrc", "*"))) == sorted(
+        [packet_trace.TRACE_SOURCE, voxel_scatter.VOXEL_SCATTER_SOURCE])
+
+
+def test_entry_points_default_to_the_card():
+    for fn, name in ((SceneDatabase.build, "device"), (PathTracer.__init__, "device"),
+                     (DeferredPipeline.__init__, "device"), (VoxelGrid.__init__, "device")):
+        assert inspect.signature(fn).parameters[name].default == "cuda", fn
