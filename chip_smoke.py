@@ -5,9 +5,9 @@
 
 Phases (any failure raises and ends the run with a nonzero exit code):
   1. the card's name and power limit (nvidia-smi);
-  2. build the native BVH library and the two CUDA kernels (BVH traversal,
-     voxel scatter-max) from the repository's sources into build/, the three
-     compilers started together;
+  2. build the native BVH library and the three CUDA libraries (BVH
+     traversal, two-phase traversal, voxel scatter-max) from the repository's
+     sources into build/, the four compilers started together;
   3. build the 2.8M-triangle atrium with the benchmark's build settings,
      lights and camera (SceneDatabase.build on the card);
   4. trace the main path's ray batches (1920x1080 primary rays; shadow rays
@@ -29,7 +29,22 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      the lighting's shadow rays); profile one frame (device time of each
      pass, kernel launches, device busy share); check a small deferred
      render on the card against the CPU's;
-  8. print the kernels' JSON line, then the result line.
+  8. two-phase traversal on the main path's ray batches (phase 4's
+     primaries and shadow rays, one bounce batch of the path-traced frame):
+     phase A and phase B kernels against their plain versions, the
+     two-phase traces against the one-phase kernels; times, overflow share,
+     wanted leaves per ray;
+  9. path-tracer pipeline frame (accumulate, à-trous denoise, bloom, AgX
+     tonemap) through PathTracerPipeline at 1920x1080, one-phase and
+     two-phase: warm-up to 32 samples, then timed frames that each denoise
+     with the launch counts reset just before; the two accumulations
+     compared; one frame of each profiled per pass;
+ 10. the denoiser record of the reference benchmark: 256x256, 8 spp
+     denoised against a 256-spp accumulation, RMSE ratios;
+ 11. traversal-cost debug view at 1920x1080: the steps kernel against the
+     plain stackless trace on the view's primaries;
+ 12. a small two-phase pipeline render on the card against the CPU's;
+ 13. print the kernels' JSON line, then the result line.
 
 The script imports nothing of JAX. Without a CUDA card it exits nonzero
 before printing any result.
@@ -53,18 +68,35 @@ CAMERA = dict(position=(0.0, 3.0, 24.0), yaw=-90.0, fov_y=65.0)
 # where the slots are equal (both built without FMA contraction, same
 # operation order); occlusion equal on at least this share
 AGREE = 0.999
-KERNEL_SOURCE = "idkengine_tpu_torch/csrc/trace.cu"
-TPU_KERNELS = {  # file:line of the Pallas kernels the CUDA kernel replaces
-    "replaces": "idkengine_tpu/ops/packet_trace.py:979",  # K1 _make_kernel
-    "also_replaces": "idkengine_tpu/ops/packet_trace.py:1531",  # K2 _make_kernel_steered_loop
+TRACE = {"route": "cuda", "source": "idkengine_tpu_torch/csrc/trace.cu",
+         "replaces": "idkengine_tpu/ops/packet_trace.py:979",  # K1 _make_kernel
+         "also_replaces": ["idkengine_tpu/ops/packet_trace.py:1531",  # K2 steer loop
+                           "idkengine_tpu/ops/packet_trace.py:1416"]}  # K4 unrolled steer
+KERNELS_WHERE = {  # route, source and the Pallas kernels each wrapper's kernel replaces
+    "trace_closest": TRACE,
+    "trace_any": TRACE,
+    # K1 with debug_iters=True, from idkengine_tpu/render/debug_view.py:53
+    "trace_closest_steps": {"route": "cuda", "source": "idkengine_tpu_torch/csrc/trace.cu",
+                            "replaces": "idkengine_tpu/ops/packet_trace.py:979"},
+    "scatter_max_dense": {"route": "cuda", "source": "idkengine_tpu_torch/csrc/voxel_scatter.cu",
+                          "replaces": "idkengine_tpu/ops/voxel_scatter.py:73"},  # K3
+    "two_phase_a": {"route": "cuda", "source": "idkengine_tpu_torch/csrc/two_phase.cu",
+                    "replaces": "idkengine_tpu/ops/two_phase.py:223",  # K5a _make_kernel_a
+                    "also_replaces": ["idkengine_tpu/ops/two_phase.py:256"]},  # K5b steered
+    # phase B runs in XLA in the JAX package (no Pallas kernel); this is its code
+    "two_phase_b": {"route": "cuda", "source": "idkengine_tpu_torch/csrc/two_phase.cu",
+                    "replaces": "idkengine_tpu/ops/two_phase.py:400"},
 }
-SCATTER = {"route": "cuda", "source": "idkengine_tpu_torch/csrc/voxel_scatter.cu",
-           "replaces": "idkengine_tpu/ops/voxel_scatter.py:73"}  # K3 _make_kernel
 SMALL_RMSE = 1e-3  # card vs CPU render of a small atrium (golden contract)
 VXGI_RES = 256  # bench.py:255's record and the reference's default
 DEFERRED_FRAMES = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-HAND_KERNELS = ("trace_kernel", "scatter_max_kernel")  # __global__ names in csrc/
+F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (data sheet)
+HAND_KERNELS = ("trace_kernel", "trace_steps_kernel", "scatter_max_kernel",  # __global__
+                "phase_a_kernel", "phase_b_kernel")  # names in csrc/
+PT_PASSES = ("pt_sample", "denoise", "bloom", "tonemap")  # PathTracerPipeline's ranges
+DENOISE_AT = 32  # PtPipelineSettings' default: frames from 32 samples on denoise
+OVERFLOW_CHECK = 65_536  # overflow rays whose lists are checked against the full plain list
 
 
 def log(msg):
@@ -95,16 +127,16 @@ def phase_card():
 
 def phase_build():
     from idkengine_tpu_torch.bvh import builder
-    from idkengine_tpu_torch.ops import packet_trace, voxel_scatter
+    from idkengine_tpu_torch.ops import packet_trace, two_phase, voxel_scatter
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         bvh = pool.submit(builder.build_library)
-        cuda = [pool.submit(m.build_kernels) for m in (packet_trace, voxel_scatter)]
+        cuda = [pool.submit(m.build_kernels) for m in (packet_trace, two_phase, voxel_scatter)]
         bvh.result()
         ptxas = "".join(f.result()[1] for f in cuda)
-    log(f"# build (BVH library, trace and scatter-max kernels; the three compilers "
-        f"started together): {time.perf_counter() - t0:.1f} s")
+    log(f"# build (BVH library; trace, two-phase and scatter-max kernels; the four "
+        f"compilers started together): {time.perf_counter() - t0:.1f} s")
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log(f"#   {line.strip()}")
@@ -144,6 +176,30 @@ def torch_sync(dev):
         torch.cuda.synchronize()
 
 
+def check_agreement(kind, got, want, what):
+    """Raises unless two traces of one batch agree under the AGREE rule:
+    closest hits with the same hit mask, slots equal on at least AGREE of
+    the rays and t, u, v bit-equal there; occlusion equal on at least AGREE.
+    Returns (share of rays that agree, largest |difference| in t or
+    occlusion)."""
+    import torch
+
+    if kind == "trace_closest":
+        same = got.slot == want.slot
+        agree = same.float().mean().item()
+        for k in ("t", "u", "v"):
+            if not torch.equal(getattr(got, k)[same], getattr(want, k)[same]):
+                raise AssertionError(f"{what}: {k} differs")
+        if not torch.equal(got.slot >= 0, want.slot >= 0) or agree < AGREE:
+            raise AssertionError(f"{what}: slot agreement {agree:.6f} < {AGREE}")
+        hit = (got.slot >= 0) & (want.slot >= 0)
+        return agree, torch.where(hit, got.t - want.t, 0.0).abs().max().item()
+    agree = (got == want).float().mean().item()
+    if agree < AGREE:
+        raise AssertionError(f"{what}: agreement {agree:.6f} < {AGREE}")
+    return agree, (got.float() - want.float()).abs().max().item()
+
+
 def compare_trace(kind, scene, o, d, t_max, reps=10):
     """One trace kernel ("trace_closest" or "trace_any") against its plain
     version on one ray batch; raises where they disagree. Returns the
@@ -160,23 +216,8 @@ def compare_trace(kind, scene, o, d, t_max, reps=10):
     want = getattr(plain, kind)(scene, o, d, t_max)
     torch_sync(o.device)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    if kind == "trace_closest":
-        same = got.slot == want.slot
-        agree = same.float().mean().item()
-        for k in ("t", "u", "v"):
-            if not torch.equal(getattr(got, k)[same], getattr(want, k)[same]):
-                raise AssertionError(f"trace_closest: {k} differs from the plain version")
-        if not torch.equal(got.slot >= 0, want.slot >= 0) or agree < AGREE:
-            raise AssertionError(f"trace_closest: slot agreement {agree:.6f} < {AGREE}")
-        hit = (got.slot >= 0) & (want.slot >= 0)
-        err = torch.where(hit, got.t - want.t, 0.0).abs().max().item()
-        out_bytes = 16  # t, slot, u, v
-    else:
-        agree = (got == want).float().mean().item()
-        if agree < AGREE:
-            raise AssertionError(f"trace_any: agreement {agree:.6f} < {AGREE}")
-        err = (got.float() - want.float()).abs().max().item()
-        out_bytes = 1
+    agree, err = check_agreement(kind, got, want, f"{kind} against the plain version")
+    out_bytes = 16 if kind == "trace_closest" else 1  # t, slot, u, v; or one bool
     ms = cuda_time_ms(lambda: getattr(kern, kind)(scene, o, d, t_max), reps)
     scene_bytes = scene.bvh_nodes.numel() * 4 + 3 * scene.tri_p0.numel() * 4
     # rays (o, d, t_max) read once, results written once, the node and
@@ -222,22 +263,27 @@ def phase_compare(scene, cam, dev):
     log(f"# trace_any, {r} shadow rays: kernel {m['ms']:.3f} ms "
         f"(bound {m['bound_ms']:.3f} ms), plain {m['plain_ms']:.1f} ms; "
         f"occluded {occ.float().mean().item():.4f}, agreement {agree:.6f}")
-    return results
+    batches = {"primary": ("trace_closest", o, d, t_max), "shadow": ("trace_any", so, sd, s_tmax)}
+    return results, batches
 
 
 def reset_all_launch_counts():
-    from idkengine_tpu_torch.ops import packet_trace, voxel_scatter
+    from idkengine_tpu_torch.ops import packet_trace, two_phase, voxel_scatter
 
     packet_trace.reset_launch_counts()
+    two_phase.reset_launch_counts()
     voxel_scatter.reset_launch_counts()
 
 
 def read_launch_counts():
-    from idkengine_tpu_torch.ops import packet_trace, voxel_scatter
+    from idkengine_tpu_torch.ops import packet_trace, two_phase, voxel_scatter
 
     return {"trace_closest": packet_trace.trace_closest.launches,
             "trace_any": packet_trace.trace_any.launches,
-            "scatter_max_dense": voxel_scatter.scatter_max_dense.launches}
+            "trace_closest_steps": packet_trace.trace_closest_steps.launches,
+            "scatter_max_dense": voxel_scatter.scatter_max_dense.launches,
+            "two_phase_a": two_phase.phase_a.launches,
+            "two_phase_b": two_phase.phase_b_closest.launches + two_phase.phase_b_any.launches}
 
 
 def phase_frame(db, scene, cam, dev, card):
@@ -280,7 +326,7 @@ def phase_frame(db, scene, cam, dev, card):
         raise AssertionError("tonemapped image leaves [0,1]")
     log(f"# image: mean {img.mean().item():.5f}, std {img.std().item():.5f}, "
         f"tonemapped mean {out.mean().item():.5f}")
-    return launches
+    return launches, pt
 
 
 def phase_small_reference(dev):
@@ -399,8 +445,8 @@ def phase_deferred_frame(pipe, cam, dev, card):
     log(f"# deferred frame: {dt / DEFERRED_FRAMES * 1e3:.2f} ms/frame, {WIDTH}x{HEIGHT}, "
         f"SSAO+TAA+bloom, ray-traced shadows, VXGI {VXGI_RES}^3, {TRIS // 1000}k-tri atrium, "
         f"on {card}; launches in {DEFERRED_FRAMES} frames {launches}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("trace_closest", "trace_any", "scatter_max_dense"):
+        if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the deferred frame")
     if tuple(out.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(out).all()):
         raise AssertionError("deferred image is not a finite (H,W,3) array")
@@ -452,10 +498,11 @@ def phase_compare_deferred_traces(pipe, cam, results):
             raise AssertionError(f"the deferred frame made no {kind} call")
 
 
-def phase_deferred_profile(pipe, cam):
-    """One deferred frame under torch.profiler: the device time of each pass
-    (the pipeline's named ranges), kernel launches, device busy time against
-    the frame's wall time, and the kernels that take most.
+def profile_frame(render, title, is_pass):
+    """One frame, render(), under torch.profiler: the device time of each
+    pass (the ranges a pipeline names with record_function; is_pass(key)
+    picks them), kernel launches, device busy time against the frame's
+    wall time, and the kernels that take most.
 
     The profiler gives a pass the kernels of the PyTorch ops inside it; the
     hand kernels, launched through ctypes outside any op, join no pass and
@@ -469,25 +516,25 @@ def phase_deferred_profile(pipe, cam):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.render_frame(cam)
+        render()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == cuda and not e.key.startswith("deferred/")]
+    kernels = [e for e in events if e.device_type == cuda and not is_pass(e.key)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     if busy_ms <= 0:
-        log(f"# deferred frame under the profiler: {wall_ms:.2f} ms wall; device time not traced")
+        log(f"# {title} under the profiler: {wall_ms:.2f} ms wall; device time not traced")
         return
-    log(f"# deferred frame under the profiler: {wall_ms:.2f} ms wall, {launches} device "
+    log(f"# {title} under the profiler: {wall_ms:.2f} ms wall, {launches} device "
         f"kernels, device busy {busy_ms:.2f} ms ({(1 - busy_ms / wall_ms) * 100:.1f}% idle); "
         f"each pass's PyTorch-op kernels (device span, host time):")
     spans = {e.key: e.device_time_total / 1e3 for e in events
-             if e.key.startswith("deferred/") and e.device_type == cuda}
+             if is_pass(e.key) and e.device_type == cuda}
     for e in events:
-        if e.key.startswith("deferred/") and e.device_type == cpu:
+        if is_pass(e.key) and e.device_type == cpu:
             span = spans.get(e.key)
-            log(f"#   {e.key[len('deferred/'):]}: {e.device_time_total / 1e3:.2f} ms "
+            log(f"#   {e.key}: {e.device_time_total / 1e3:.2f} ms "
                 f"({e.device_time_total / 1e3 / busy_ms * 100:.1f}% of busy; span "
                 f"{'not traced' if span is None else f'{span:.2f} ms'}, "
                 f"host {e.cpu_time_total / 1e3:.2f} ms)")
@@ -529,6 +576,337 @@ def phase_small_deferred(dev):
         raise AssertionError("card deferred render disagrees with the CPU render")
 
 
+def capture_bounce_batch(pt, cam):
+    """The rays (o, d, t_max) of the path-traced frame's second closest-hit
+    trace (the first bounce, sorted), recorded by standing in for the
+    tracer's trace_closest for one frame."""
+    from idkengine_tpu_torch.render import pathtracer as pathtracer_mod
+
+    calls, fn = [], pathtracer_mod.trace_closest
+
+    def recording(scene, o, d, t_max):
+        calls.append((o, d, t_max))
+        return fn(scene, o, d, t_max)
+
+    pathtracer_mod.trace_closest = recording
+    try:
+        pt.render_frame(cam)
+    finally:
+        pathtracer_mod.trace_closest = fn
+    if len(calls) != DEPTH:
+        raise AssertionError(f"the frame made {len(calls)} closest-hit traces, not {DEPTH}")
+    return calls[1]
+
+
+def compare_phase_a(scene, o, d, t_max):
+    """Phase A kernel against its plain version: cnt equal on every ray,
+    the same list sets where cnt <= D; on OVERFLOW_CHECK overflow rays at a
+    fixed stride, every recorded id lies in the plain version's full list."""
+    import torch
+
+    from idkengine_tpu_torch.ops import two_phase as tp
+
+    n_slots, r = tp.D_SLOTS, o.shape[0]
+    lists, cnt = tp.phase_a(scene, o, d, t_max, n_slots)
+    torch_sync(o.device)
+    t0 = time.perf_counter()
+    p_lists, p_cnt = tp.phase_a_plain(scene, o, d, t_max, n_slots)
+    torch_sync(o.device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (cnt - p_cnt).abs().max().item()
+    if not torch.equal(cnt, p_cnt):
+        raise AssertionError(f"phase A: cnt differs on {(cnt != p_cnt).sum().item()} rays")
+    if not torch.equal((lists >= 0).sum(1), torch.clamp(cnt, max=n_slots)):
+        raise AssertionError("phase A: recorded entries are not min(cnt, D)")
+    fine = cnt <= n_slots
+    if not torch.equal(torch.sort(lists[fine], 1).values, torch.sort(p_lists[fine], 1).values):
+        raise AssertionError("phase A: list sets differ from the plain version's")
+    over = torch.nonzero(cnt > n_slots)[:, 0]
+    if over.numel():
+        sel = over[::max(1, over.numel() // OVERFLOW_CHECK)][:OVERFLOW_CHECK]
+        full, _ = tp.phase_a_plain(scene, o[sel], d[sel], t_max[sel], int(cnt[sel].max()))
+        rows = torch.arange(sel.numel(), device=o.device)[:, None] * scene.bvh_nodes.shape[0]
+        got = lists[sel].long()
+        if not torch.isin((rows + got)[got >= 0], (rows + full.long())[full >= 0]).all():
+            raise AssertionError("phase A: an overflow ray recorded a leaf it does not want")
+    ms = cuda_time_ms(lambda: tp.phase_a(scene, o, d, t_max, n_slots), 5)
+    # each ray (o, d, t_max) read once, the node table read once, cnt and
+    # the D list slots written once
+    nbytes = r * 28 + scene.bvh_nodes.numel() * 4 + r * (n_slots + 1) * 4
+    cf = cnt.float()
+    stats = dict(overflow=(cnt > n_slots).float().mean().item(), cnt_mean=cf.mean().item(),
+                 cnt_max=int(cnt.max().item()), checked_overflow_rays=int(min(
+                     over.numel(), OVERFLOW_CHECK)))
+    return lists, cnt, dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                            library_ms=None), stats
+
+
+def compare_phase_b(kind, scene, lists, o, d, t_max):
+    """Phase B kernel against its plain version on the same lists: t, u, v
+    bit-equal and slots equal (closest), occlusion equal (any)."""
+    import torch
+
+    from idkengine_tpu_torch.ops import two_phase as tp
+
+    closest = kind == "trace_closest"
+    fn = tp.phase_b_closest if closest else tp.phase_b_any
+    plain_fn = tp.phase_b_closest_plain if closest else tp.phase_b_any_plain
+    got = fn(scene, lists, o, d, t_max)
+    t0 = time.perf_counter()
+    want = plain_fn(scene, lists, o, d, t_max)
+    torch_sync(o.device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if closest:
+        for k in ("t", "slot", "u", "v"):
+            if not torch.equal(getattr(got, k), getattr(want, k)):
+                raise AssertionError(f"phase B closest: {k} differs from the plain version")
+        err = (got.t - want.t).abs().max().item()
+    else:
+        if not torch.equal(got, want):
+            raise AssertionError("phase B any: occlusion differs from the plain version")
+        err = (got.float() - want.float()).abs().max().item()
+    ms = cuda_time_ms(lambda: fn(scene, lists, o, d, t_max), 5)
+    # bytes: each ray (o, d, t_max) and its list read once, results written
+    # once, the first/count of each listed leaf and its triangles (36 B)
+    # read once; operations: one Möller test (about 50 float32 operations)
+    # per listed triangle of each ray (all of them for closest hits)
+    r, listed = o.shape[0], lists[lists >= 0].long()
+    leaves = torch.unique(listed)
+    nbytes = (r * 28 + lists.numel() * 4 + r * (16 if closest else 1)
+              + leaves.numel() * 8 + scene.node_count[leaves].sum().item() * 36)
+    tests = scene.node_count[listed].sum().item()
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, tests * 50 / F32_OPS_PER_S * 1e3
+    bound = (dict(bound_ms=ops_ms, bound_by="operations") if closest and ops_ms > bytes_ms
+             else dict(bound_ms=bytes_ms, bound_by="bytes"))
+    return got, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=None), tests
+
+
+def phase_two_phase(scene, pt, cam, batches):
+    """Phase 8: the two-phase traversal on the main path's ray batches."""
+    import torch
+
+    from idkengine_tpu_torch.ops import packet_trace as kern
+    from idkengine_tpu_torch.ops import two_phase as tp
+
+    batches = dict(batches, bounce=("trace_closest", *capture_bounce_batch(pt, cam)))
+    entries = {"two_phase_a": None, "two_phase_b": None}
+    for name, (kind, o, d, t_max) in batches.items():
+        closest = kind == "trace_closest"
+        two_fn = tp.two_phase_closest if closest else tp.two_phase_any
+        one_fn = getattr(kern, kind)
+        lists, cnt, ma, st = compare_phase_a(scene, o, d, t_max)
+        hb, mb, tests = compare_phase_b(kind, scene, lists, o, d, t_max)
+        agree, _ = check_agreement(kind, two_fn(scene, o, d, t_max), one_fn(scene, o, d, t_max),
+                                   f"two-phase {kind} against the one-phase kernel")
+        # the fallback launch as the two-phase trace makes it
+        over, live = cnt > tp.D_SLOTS, t_max > 0
+        tm2 = (torch.where(over & live, torch.minimum(hb.t, t_max), -1.0) if closest
+               else torch.where(over & ~hb & live, t_max, -1.0))
+        fb_ms = cuda_time_ms(lambda: one_fn(scene, o, d, tm2), 5)
+        two_ms = cuda_time_ms(lambda: two_fn(scene, o, d, t_max), 5)
+        one_ms = cuda_time_ms(lambda: one_fn(scene, o, d, t_max), 5)
+        log(f"# two-phase, {name} batch ({o.shape[0]} rays, {kind}): phase A {ma['ms']:.3f} ms "
+            f"(bound {ma['bound_ms']:.3f}, plain {ma['plain_ms']:.1f}), phase B {mb['ms']:.3f} ms "
+            f"(bound {mb['bound_ms']:.3f} by {mb['bound_by']}, {tests} triangle tests, plain "
+            f"{mb['plain_ms']:.1f}), fallback {fb_ms:.3f} ms; two-phase call {two_ms:.3f} ms "
+            f"against one-phase {one_ms:.3f} ms; overflow {st['overflow']:.4f}, wanted leaves "
+            f"per ray mean {st['cnt_mean']:.2f} max {st['cnt_max']} "
+            f"({st['checked_overflow_rays']} overflow lists checked); agreement {agree:.6f}")
+        for key, m in (("two_phase_a", ma), ("two_phase_b", mb)):
+            call = dict(batch=name, rays=o.shape[0], **m, fallback_ms=fb_ms, two_phase_ms=two_ms,
+                        one_phase_ms=one_ms, agreement=agree, **st)
+            if entries[key] is None:  # the primaries' numbers stand for the kernel
+                entries[key] = dict(m, batches=[])
+            entries[key]["max_abs_err"] = max(entries[key]["max_abs_err"], m["max_abs_err"])
+            entries[key]["batches"].append(call)
+    return entries
+
+
+def phase_pipeline(db, cam, dev, card):
+    """Phase 9: PathTracerPipeline frames at full width, one-phase and
+    two-phase, timed in turns (one, two, two, one) after both warmed up to
+    DENOISE_AT samples. Returns each one's launch counts over a timed set."""
+    import torch
+
+    from idkengine_tpu_torch.render import (PathTracerPipeline, PathTracerSettings,
+                                            PtPipelineSettings)
+
+    pipes = {}
+    for label, two in (("pt_pipeline", False), ("pt_pipeline_two_phase", True)):
+        settings = PathTracerSettings(ray_depth=DEPTH, russian_roulette=False,
+                                      do_ray_sorting=True, sky_strength=1.0, use_two_phase=two)
+        pipes[label] = PathTracerPipeline(db, WIDTH, HEIGHT, settings, PtPipelineSettings(),
+                                          device=dev)
+        t0 = time.perf_counter()
+        for _ in range(DENOISE_AT):
+            pipes[label].render_frame(cam)
+        torch_sync(dev)
+        log(f"# {label}: {DENOISE_AT} warm-up frames {time.perf_counter() - t0:.2f} s")
+    launches, ms = {}, {label: [] for label in pipes}
+    for label in ("pt_pipeline", "pt_pipeline_two_phase", "pt_pipeline_two_phase", "pt_pipeline"):
+        pipe = pipes[label]
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_FRAMES):
+            out = pipe.render_frame(cam)
+        torch_sync(dev)
+        ms[label].append((time.perf_counter() - t0) / TIMED_FRAMES * 1e3)
+        launches[label] = read_launch_counts()
+        wanted = ("trace_closest", "trace_any") + (
+            ("two_phase_a", "two_phase_b") if label.endswith("two_phase") else ())
+        for name in wanted:
+            if launches[label][name] == 0:
+                raise AssertionError(f"{name} was not launched on the {label} frame")
+        if tuple(out.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{label} image is not a finite (H,W,3) array")
+        if not (0.0 <= out.min().item() and out.max().item() <= 1.0 and out.std().item() > 0.01):
+            raise AssertionError(f"{label} image leaves [0,1] or is flat")
+    for label, pipe in pipes.items():
+        log(f"# {label} frame (denoised, bloom, AgX): "
+            f"{' / '.join(f'{m:.2f}' for m in ms[label])} ms/frame over two sets of "
+            f"{TIMED_FRAMES} frames (timed in turns one, two, two, one), "
+            f"{WIDTH}x{HEIGHT} depth {DEPTH}, on {card}; launches per set {launches[label]}")
+    rmse = torch.sqrt(torch.mean((pipes["pt_pipeline"].pt.image()
+                                  - pipes["pt_pipeline_two_phase"].pt.image()) ** 2)).item()
+    log(f"# two-phase against one-phase accumulation "
+        f"({pipes['pt_pipeline'].pt.accumulated_samples} samples): RMSE {rmse:.3g} "
+        f"(limit {SMALL_RMSE})")
+    if not rmse <= SMALL_RMSE:
+        raise AssertionError("the two-phase accumulation disagrees with the one-phase one")
+    for label, pipe in pipes.items():
+        profile_frame(lambda: pipe.render_frame(cam), f"{label} frame", lambda k: k in PT_PASSES)
+    return launches
+
+
+def phase_denoise_record(db, scene, cam, dev):
+    """Phase 10: the reference benchmark's denoiser record (bench.py:205-245):
+    256x256, 8 spp denoised against a 256-spp accumulation, RMSE ratios in
+    linear and tonemapped space. No gate: the reference fails its own."""
+    import torch
+
+    from idkengine_tpu_torch.render import PathTracer, PathTracerSettings
+    from idkengine_tpu_torch.render.denoise import atrous_denoise
+    from idkengine_tpu_torch.render.tonemap import tonemap
+
+    n = 256
+    settings = PathTracerSettings(ray_depth=DEPTH, russian_roulette=False, do_ray_sorting=True,
+                                  sky_strength=1.0)
+    pt = PathTracer(scene, db.materials.soa(), db.lights.soa(), n, n, settings, device=dev)
+    for _ in range(8):
+        pt.render_frame(cam)
+    noisy = pt.image().clone()
+    alb, nrm, dep = pt._last_aovs
+    args = (noisy, alb.reshape(n, n, 3), nrm.reshape(n, n, 3), dep.reshape(n, n))
+    den = atrous_denoise(*args, variance=pt.variance())
+    ms = cuda_time_ms(lambda: atrous_denoise(*args, variance=pt.variance()), 5)
+    for _ in range(248):
+        pt.render_frame(cam)
+    ref = pt.image()
+
+    def rmse(a, b):
+        return torch.sqrt(torch.mean((a - b) ** 2)).item()
+
+    if not bool(torch.isfinite(den).all()):
+        raise AssertionError("denoised image is not finite")
+    lin = rmse(den, ref) / max(rmse(noisy, ref), 1e-12)
+    tmr = rmse(tonemap(den), tonemap(ref)) / max(rmse(tonemap(noisy), tonemap(ref)), 1e-12)
+    log(f"# denoiser record, {n}x{n}, 8 spp denoised against 256 spp: RMSE ratio linear "
+        f"{lin:.4f}, tonemapped {tmr:.4f} (the reference's gate is 0.85; not asserted); "
+        f"atrous_denoise {ms:.3f} ms at {n}x{n}")
+
+
+def phase_debug_view(db, scene, cam, dev, card):
+    """Phase 11: the traversal-cost heatmap at full width, and the steps
+    kernel against the plain stackless trace on the view's primaries."""
+    import torch
+
+    from idkengine_tpu_torch.ops import packet_trace as kern
+    from idkengine_tpu_torch.ops import trace as plain
+    from idkengine_tpu_torch.render import PathTracer, PathTracerSettings
+    from idkengine_tpu_torch.render.camera import generate_rays
+    from idkengine_tpu_torch.render.debug_view import traversal_cost_image
+
+    pt = PathTracer(scene, db.materials.soa(), db.lights.soa(), WIDTH, HEIGHT,
+                    PathTracerSettings(ray_depth=DEPTH), device=dev)
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    img = traversal_cost_image(pt, cam)
+    torch_sync(dev)
+    view_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launch_counts()
+    if launches["trace_closest_steps"] == 0:
+        raise AssertionError("trace_closest_steps was not launched by the debug view")
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("heatmap is not a finite (H,W,3) array")
+    if not (0.0 <= img.min().item() and img.max().item() <= 1.0 and img.std().item() > 0.01):
+        raise AssertionError("heatmap leaves [0,1] or is flat")
+
+    r = WIDTH * HEIGHT
+    o, d = generate_rays(cam.ray_params(WIDTH, HEIGHT), WIDTH, HEIGHT,
+                         torch.zeros((r, 2), device=dev))
+    t_max = torch.full((r,), 3.4e38, device=dev)
+    got, steps = kern.trace_closest_steps(scene, o, d, t_max)
+    t0 = time.perf_counter()
+    want, want_steps = plain.trace_closest_steps(scene, o, d, t_max)
+    torch_sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max((steps - want_steps).abs().max().item(), (got.t - want.t).abs().max().item())
+    if not torch.equal(steps, want_steps):
+        raise AssertionError(f"steps differ on {(steps != want_steps).sum().item()} rays")
+    for k in ("t", "slot", "u", "v"):
+        if not torch.equal(getattr(got, k), getattr(want, k)):
+            raise AssertionError(f"trace_closest_steps: {k} differs from the plain version")
+    ms = cuda_time_ms(lambda: kern.trace_closest_steps(scene, o, d, t_max), 5)
+    one_ms = cuda_time_ms(lambda: kern.trace_closest(scene, o, d, t_max), 5)
+    # rays read once, the threaded arrays (40 B a node) and the triangles
+    # (36 B each) read once, t/slot/u/v/steps written once
+    n_nodes, n_tris = scene.node_count.shape[0], scene.tri_p0.shape[0]
+    nbytes = r * 28 + n_nodes * 40 + n_tris * 36 + r * 20
+    sf = steps.float()
+    log(f"# debug view {WIDTH}x{HEIGHT}: heatmap {view_ms:.2f} ms (host); steps kernel "
+        f"{ms:.3f} ms (one-phase trace_closest {one_ms:.3f} ms), plain {plain_ms:.1f} ms; "
+        f"steps mean {sf.mean().item():.1f} max {int(steps.max().item())}; steps and hits "
+        f"equal on every ray; launches {launches}")
+    return dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", library_ms=None), launches
+
+
+def phase_small_pipeline(dev):
+    """Phase 12: a small two-phase pipeline render on the card against the
+    same render on the CPU, denoising from the second frame."""
+    import numpy as np
+
+    from idkengine_tpu_torch.bvh.builder import BuildSettings
+    from idkengine_tpu_torch.render import (Camera, PathTracerPipeline, PathTracerSettings,
+                                            PtPipelineSettings)
+    from idkengine_tpu_torch.scene.procedural import atrium
+    from idkengine_tpu_torch.scene.scene_db import SceneDatabase
+
+    cam = Camera(position=np.array(CAMERA["position"], np.float32), yaw=CAMERA["yaw"],
+                 fov_y=CAMERA["fov_y"])
+    settings = PathTracerSettings(ray_depth=DEPTH, russian_roulette=False, do_ray_sorting=True,
+                                  use_two_phase=True)
+    imgs = []
+    for device in (dev, "cpu"):
+        db = SceneDatabase(BuildSettings(**BUILD))
+        db.add_model(atrium(8000))
+        db.build(device)
+        for pos, rad, r in LIGHTS:
+            db.lights.add(pos, rad, radius=r)
+        pipe = PathTracerPipeline(db, 96, 54, settings, PtPipelineSettings(denoise_at_samples=2),
+                                  device=device)
+        for _ in range(3):
+            img = pipe.render_frame(cam)
+        imgs.append(img.cpu().numpy())
+    rmse = float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2)))
+    log(f"# small two-phase pipeline 96x54, 3 frames, denoised from the second: card vs CPU "
+        f"RMSE {rmse:.3g} (limit {SMALL_RMSE})")
+    if not rmse <= SMALL_RMSE:
+        raise AssertionError("card pipeline render disagrees with the CPU render")
+
+
 def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -539,27 +917,40 @@ def main():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card = phase_card()
     phase_build()
     db, scene, cam = phase_scene(dev)
-    timings = phase_compare(scene, cam, dev)
-    launches_pt = phase_frame(db, scene, cam, dev, card)
+    timings, batches = phase_compare(scene, cam, dev)
+    launches = {}
+    launches["pathtracer"], pt = phase_frame(db, scene, cam, dev, card)
     phase_small_reference(dev)
 
     from idkengine_tpu_torch.render import DeferredPipeline
 
     pipe = DeferredPipeline(db, WIDTH, HEIGHT, _deferred_settings(VXGI_RES), device=dev)
     timings["scatter_max_dense"] = phase_compare_scatter(db, scene, pipe, dev)
-    launches_def = phase_deferred_frame(pipe, cam, dev, card)
+    launches["deferred"] = phase_deferred_frame(pipe, cam, dev, card)
     phase_compare_deferred_traces(pipe, cam, timings)
-    phase_deferred_profile(pipe, cam)
+    profile_frame(lambda: pipe.render_frame(cam), "deferred frame",
+                  lambda key: key.startswith("deferred/"))
     phase_small_deferred(dev)
+    del pipe
+    torch.cuda.empty_cache()
+    log(f"# phases 1-7 took {time.perf_counter() - t_start:.1f} s")
+
+    timings.update(phase_two_phase(scene, pt, cam, batches))
+    del pt, batches
+    launches.update(phase_pipeline(db, cam, dev, card))
+    phase_denoise_record(db, scene, cam, dev)
+    timings["trace_closest_steps"], launches["debug_view"] = phase_debug_view(
+        db, scene, cam, dev, card)
+    phase_small_pipeline(dev)
+    log(f"# phases 1-12 took {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
-    for name in ("trace_closest", "trace_any", "scatter_max_dense"):
-        where = (dict(route="cuda", source=KERNEL_SOURCE, **TPU_KERNELS)
-                 if name.startswith("trace") else SCATTER)
-        by_path = {"pathtracer": launches_pt[name], "deferred": launches_def[name]}
+    for name, where in KERNELS_WHERE.items():
+        by_path = {path: counts[name] for path, counts in launches.items()}
         kernels.append(dict(name=name, **where, launches=sum(by_path.values()),
                             launches_by_path=by_path, **timings[name]))
     log(json.dumps({"kernels": kernels}))

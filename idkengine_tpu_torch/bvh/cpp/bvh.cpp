@@ -499,8 +499,8 @@ struct Builder {
   static constexpr int kBins = 32;  // 5 bits/axis pack into one u32 key
   // Ranges below this bin only the dominant centroid axis (IDK_BVH_ONE_AXIS
   // overrides). Default OFF: measured at 2.75M on one core, one-axis below
-  // 4096 saves only 7% build time (the pass is memory-bound on the 40 B
-  // records, not min/max-bound) while SAH degrades 120.7 -> 127.3; one-axis
+  // 4096 saves only 7% build time (the pass is memory-bound on the 28 B
+  // fragment records, not min/max-bound) while SAH degrades 120.7 -> 127.3; one-axis
   // everywhere saves 18% at SAH 137.8. Kept as a knob + negative result.
   static uint32_t one_axis_max() {
     if (const char* e = std::getenv("IDK_BVH_ONE_AXIS")) {
@@ -587,9 +587,9 @@ struct Builder {
         bv[a][b] = {vinf, vninf, vinf, vninf, 0};
     static_assert(sizeof(Fragment) == 28, "SIMD loads assume 7-word layout");
     const __m128 vhalf = _mm_set1_ps(0.5f);
-    // Fragments are partitioned PHYSICALLY (40-byte records, not index
+    // Fragments are partitioned PHYSICALLY (28-byte records, not index
     // arrays), so this pass streams the range sequentially. The index-array
-    // variant turned every level below the first into random 40 B gathers
+    // variant turned every level below the first into random 28 B gathers
     // over the whole fragment array (ids get scrambled by partitioning) —
     // switching to physical partitioning measured 2020 -> ~800 ms for the
     // whole recursion at 2.75M fragments on one core.

@@ -1,15 +1,18 @@
 // Closest-hit and any-hit BVH traversal for Hopper (sm_90a), one ray per
 // thread.
 //
-// Replaces the TPU packet tracer's two Pallas kernels:
+// Replaces the TPU packet tracer's Pallas kernels:
 //   K1 idkengine_tpu/ops/packet_trace.py `_make_kernel` (whole-table scenes,
-//      traversal body `_build_run_seg`), and
+//      traversal body `_build_run_seg`),
 //   K2 idkengine_tpu/ops/packet_trace.py `_make_kernel_steered_loop` (scenes
-//      split into VMEM-sized segments, steered per packet).
-// K2's segmentation exists only because a TPU segment must fit the ~16 MB
-// scoped VMEM. Here the whole scene lies in device memory and one traversal
-// computes both contracts: Hit(t, slot, u, v) for the closest hit, and
-// occlusion before t_max for the any-hit query.
+//      split into VMEM-sized segments, steered per packet), and
+//   K4 idkengine_tpu/ops/packet_trace.py `_make_kernel_steered` (K2's
+//      contract with K unrolled steer slots, a residual pass and a backstop;
+//      chosen when IDK_STEER_LOOP=0).
+// K2's and K4's segmentation exists only because a TPU segment must fit the
+// ~16 MB scoped VMEM. Here the whole scene lies in device memory and one
+// traversal computes every contract: Hit(t, slot, u, v) for the closest hit,
+// and occlusion before t_max for the any-hit query.
 //
 // What bounds it: not bandwidth or arithmetic but the latency of dependent
 // node fetches, and divergence between the rays of a warp. Each step reads
@@ -22,88 +25,30 @@
 // Packet or warp-cooperative traversal, a wider tree and wavefront
 // compaction are later work.
 //
-// Layout (idkengine_tpu_torch/bvh/flatten.py:bvh2_nodes): one 32-byte record
-// per node in DFS order: min.xyz f32 | right_or_first i32 | max.xyz f32 |
-// count i32. An interior node (count 0) has its left child at the next
-// record and its right child at `right_or_first`; a leaf covers triangle
-// slots [first, first + count) of tri_p0/e1/e2 (T,3) f32. No box is empty
-// or NaN, so fminf/fmaxf in the slab test see no NaN (CUDA's fminf returns
-// the non-NaN operand, which would let a NaN sentinel box pass).
-//
-// Arithmetic follows the plain version (ops/intersect.py) operation by
-// operation; built with -fmad=false, so no multiply-add is contracted and
-// the kernel and the plain version agree bit for bit in t, u and v.
+// Layout and arithmetic: trace_math.cuh (the binary node records of
+// bvh/flatten.py:bvh2_nodes; the plain version's operation order, built
+// with -fmad=false so that t, u and v are bit-equal with it).
 //
 // The stack holds the pending far children: at most depth-1 entries. The
 // wrapper refuses a tree deeper than TRACE_STACK_SIZE + 1.
+//
+// A third entry point, idk_trace_closest_steps, replaces K1 with
+// `debug_iters=True` (packet_trace.py:979, called from
+// render/debug_view.py:53; the "K1-dbg" kernel): closest hits plus a
+// per-ray count of traversal steps for the traversal-cost heatmap. The TPU
+// kernel counts loop trips per packet; the JAX package's per-ray contract
+// is its stackless trace_closest_steps (ops/trace.py:244-275), so
+// trace_steps_kernel walks the threaded arrays (node_min, node_max,
+// node_first, node_count, hit_link, miss_link) one node per step, exactly
+// as that trace does: its counts match the plain version ray by ray, which
+// a near-first stack walk would not. It is a debug kernel; its speed is
+// only recorded.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
 
-#define TRACE_STACK_SIZE 64
-#define TRACE_BLOCK 128
+#include "trace_math.cuh"
 
 namespace {
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-};
-
-__device__ __forceinline__ float inv_clamped(float d) {
-  const float tiny = 1e-20f;
-  float c = fabsf(d) < tiny ? (d < 0.0f ? -tiny : tiny) : d;
-  return 1.0f / c;
-}
-
-// Slab test against the box of node record `rec` (two float4 loads).
-__device__ __forceinline__ bool slab(const float4* __restrict__ nodes, int node,
-                                     const Ray& r, float t_best, float& tn_out,
-                                     float4& a, float4& b) {
-  a = __ldg(nodes + 2 * node);
-  b = __ldg(nodes + 2 * node + 1);
-  float t0 = (a.x - r.ox) * r.ix;
-  float t1 = (b.x - r.ox) * r.ix;
-  float tn = fminf(t0, t1);
-  float tf = fmaxf(t0, t1);
-  t0 = (a.y - r.oy) * r.iy;
-  t1 = (b.y - r.oy) * r.iy;
-  tn = fmaxf(tn, fminf(t0, t1));
-  tf = fminf(tf, fmaxf(t0, t1));
-  t0 = (a.z - r.oz) * r.iz;
-  t1 = (b.z - r.oz) * r.iz;
-  tn = fmaxf(tn, fminf(t0, t1));
-  tf = fminf(tf, fmaxf(t0, t1));
-  tn = fmaxf(tn, 0.0f);
-  tn_out = tn;
-  return (tf >= tn) && (tn <= t_best);
-}
-
-// Möller–Trumbore on (p0, e1, e2) of triangle slot `s`; the operation order
-// is that of ops/intersect.py:ray_triangle.
-__device__ __forceinline__ bool triangle(const float* __restrict__ p0,
-                                         const float* __restrict__ e1,
-                                         const float* __restrict__ e2, int s,
-                                         const Ray& r, float& t, float& u,
-                                         float& v) {
-  const float e1x = __ldg(e1 + 3 * s), e1y = __ldg(e1 + 3 * s + 1), e1z = __ldg(e1 + 3 * s + 2);
-  const float e2x = __ldg(e2 + 3 * s), e2y = __ldg(e2 + 3 * s + 1), e2z = __ldg(e2 + 3 * s + 2);
-  const float pvx = r.dy * e2z - r.dz * e2y;
-  const float pvy = r.dz * e2x - r.dx * e2z;
-  const float pvz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  const bool ok_det = fabsf(det) > 1e-12f;
-  const float inv_det = ok_det ? 1.0f / det : 0.0f;
-  const float sx = r.ox - __ldg(p0 + 3 * s);
-  const float sy = r.oy - __ldg(p0 + 3 * s + 1);
-  const float sz = r.oz - __ldg(p0 + 3 * s + 2);
-  u = (sx * pvx + sy * pvy + sz * pvz) * inv_det;
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  return ok_det && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f;
-}
 
 template <bool ANY_HIT>
 __global__ void __launch_bounds__(TRACE_BLOCK)
@@ -121,10 +66,7 @@ trace_kernel(const float4* __restrict__ nodes, const float* __restrict__ p0,
   float best_u = 0.0f, best_v = 0.0f;
 
   if (!(tmax < 0.0f)) {  // t_max < 0 marks a dead ray
-    Ray r;
-    r.ox = o[3 * i]; r.oy = o[3 * i + 1]; r.oz = o[3 * i + 2];
-    r.dx = d[3 * i]; r.dy = d[3 * i + 1]; r.dz = d[3 * i + 2];
-    r.ix = inv_clamped(r.dx); r.iy = inv_clamped(r.dy); r.iz = inv_clamped(r.dz);
+    const Ray r = load_ray(o, d, i);
 
     int stack_node[TRACE_STACK_SIZE];
     float stack_tn[TRACE_STACK_SIZE];
@@ -195,8 +137,54 @@ trace_kernel(const float4* __restrict__ nodes, const float* __restrict__ p0,
   }
 }
 
-inline dim3 grid_for(int n_rays) {
-  return dim3((unsigned)((n_rays + TRACE_BLOCK - 1) / TRACE_BLOCK));
+// One step per iteration, as ops/trace.py:_traverse: slab-test the pointed
+// node against t_best; at a hit leaf test its triangles in order with
+// strict <; follow hit_link at a hit interior node, else miss_link. Dead
+// rays run too (one step at the root), as the plain version counts them.
+__global__ void __launch_bounds__(TRACE_BLOCK)
+trace_steps_kernel(const float* __restrict__ node_min, const float* __restrict__ node_max,
+                   const int* __restrict__ node_first, const int* __restrict__ node_count,
+                   const int* __restrict__ hit_link, const int* __restrict__ miss_link,
+                   const float* __restrict__ p0, const float* __restrict__ e1,
+                   const float* __restrict__ e2, const float* __restrict__ o,
+                   const float* __restrict__ d, const float* __restrict__ t_max,
+                   float* __restrict__ t_out, int* __restrict__ slot_out,
+                   float* __restrict__ u_out, float* __restrict__ v_out,
+                   int* __restrict__ steps_out, int n_rays) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const Ray r = load_ray(o, d, i);
+  float t_best = t_max[i];
+  int best_slot = -1, steps = 0;
+  float best_u = 0.0f, best_v = 0.0f;
+  int ptr = 0;
+  while (ptr >= 0) {
+    ++steps;
+    const float* lo = node_min + 3 * ptr;
+    const float* hi = node_max + 3 * ptr;
+    float tn;
+    const bool hit = slab_box(__ldg(lo), __ldg(lo + 1), __ldg(lo + 2), __ldg(hi),
+                              __ldg(hi + 1), __ldg(hi + 2), r, t_best, tn);
+    const int count = __ldg(node_count + ptr);
+    if (hit && count > 0) {
+      const int first = __ldg(node_first + ptr);
+      for (int k = 0; k < count; ++k) {
+        float t, u, v;
+        if (triangle(p0, e1, e2, first + k, r, t, u, v) && t < t_best) {
+          t_best = t;
+          best_slot = first + k;
+          best_u = u;
+          best_v = v;
+        }
+      }
+    }
+    ptr = (hit && count == 0) ? __ldg(hit_link + ptr) : __ldg(miss_link + ptr);
+  }
+  t_out[i] = t_best;
+  slot_out[i] = best_slot;
+  u_out[i] = best_u;
+  v_out[i] = best_v;
+  steps_out[i] = steps;
 }
 
 }  // namespace
@@ -227,6 +215,25 @@ int idk_trace_any(const void* nodes, const void* p0, const void* e1,
       (const float4*)nodes, (const float*)p0, (const float*)e1, (const float*)e2,
       (const float*)o, (const float*)d, (const float*)t_max, nullptr, nullptr,
       nullptr, nullptr, (bool*)occ_out, n_rays);
+  return (int)cudaGetLastError();
+}
+
+// Closest hit and traversal steps per ray over the threaded arrays
+// (node_min/node_max (N,3) f32, node_first/node_count/hit_link/miss_link
+// (N,) i32). Outputs (n_rays,) f32 t, i32 slot, f32 u, f32 v, i32 steps.
+// Returns cudaGetLastError().
+int idk_trace_closest_steps(const void* node_min, const void* node_max,
+                            const void* node_first, const void* node_count,
+                            const void* hit_link, const void* miss_link, const void* p0,
+                            const void* e1, const void* e2, const void* o, const void* d,
+                            const void* t_max, void* t_out, void* slot_out, void* u_out,
+                            void* v_out, void* steps_out, int n_rays, void* stream) {
+  trace_steps_kernel<<<grid_for(n_rays), TRACE_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const float*)node_min, (const float*)node_max, (const int*)node_first,
+      (const int*)node_count, (const int*)hit_link, (const int*)miss_link,
+      (const float*)p0, (const float*)e1, (const float*)e2, (const float*)o,
+      (const float*)d, (const float*)t_max, (float*)t_out, (int*)slot_out,
+      (float*)u_out, (float*)v_out, (int*)steps_out, n_rays);
   return (int)cudaGetLastError();
 }
 

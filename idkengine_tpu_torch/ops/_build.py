@@ -1,10 +1,10 @@
 """Builds the port's native libraries from the repository's sources.
 
 Each library is compiled on first use into the ignored `build/` directory at
-the repository root and loaded with ctypes. A build is redone when any source
-is newer than the library. Compilation goes to a per-process temporary file
-that is renamed into place, so concurrent test workers never load a
-half-written library.
+the repository root and loaded with ctypes. A build is redone when any source,
+or header it includes, is newer than the library. Compilation goes to a
+per-process temporary file that is renamed into place, so concurrent test
+workers never load a half-written library.
 """
 from __future__ import annotations
 
@@ -19,14 +19,14 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 COMPILE_TIMEOUT_S = 900
 
 
-def build_shared_library(name: str, sources: list[str],
-                         command: list[str]) -> tuple[str, str]:
-    """Compile `sources` with `command` into BUILD_DIR/name unless an
-    up-to-date copy exists. Returns (library path, compiler output; empty
-    when the library was already built). Raises RuntimeError when the
-    compiler fails."""
+def build_shared_library(name: str, sources: list[str], command: list[str],
+                         headers: tuple[str, ...] = ()) -> tuple[str, str]:
+    """Compile `sources` with `command` into BUILD_DIR/name unless a copy
+    newer than every source and included header exists. Returns (library
+    path, compiler output; empty when the library was already built).
+    Raises RuntimeError when the compiler fails."""
     out = os.path.join(BUILD_DIR, name)
-    newest = max(os.path.getmtime(s) for s in sources)
+    newest = max(os.path.getmtime(s) for s in (*sources, *headers))
     if os.path.exists(out) and os.path.getmtime(out) >= newest:
         return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -3,9 +3,11 @@ plain stackless trace for tensors on the CPU.
 Counterpart: idkengine_tpu/ops/packet_trace.py (the Pallas packet tracer).
 
 `trace_closest`/`trace_any` answer what the JAX package's whole-table
-(`packet_trace_closest/any`) and segmented (`packet_trace_*_steered`) entry
-points answer, over one whole-scene BVH: the kernel `csrc/trace.cu` replaces
-both TPU kernels (see its header). The kernel is compiled with nvcc on first
+(`packet_trace_closest/any`) and segmented (`packet_trace_*_steered`, loop or
+unrolled) entry points answer, over one whole-scene BVH: the kernel
+`csrc/trace.cu` replaces the three TPU kernels K1, K2 and K4 (see its
+header). `trace_closest_steps` adds per-ray traversal steps for the debug
+heatmap (K1 with `debug_iters`). The kernel is compiled with nvcc on first
 use into `build/` and bound with ctypes. A CUDA tensor reaches the kernel or
 the call raises; the plain version runs only for tensors on the CPU.
 """
@@ -21,6 +23,7 @@ from ._build import CSRC_DIR, build_shared_library, find_nvcc
 from .trace import Hit, SceneArrays
 
 TRACE_SOURCE = os.path.join(CSRC_DIR, "trace.cu")
+TRACE_HEADER = os.path.join(CSRC_DIR, "trace_math.cuh")  # shared with two_phase.cu
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -31,7 +34,7 @@ def build_kernels() -> tuple[str, str]:
     """Compile csrc/trace.cu if needed. Returns (library path, compiler
     output with ptxas register and spill counts; empty when current)."""
     return build_shared_library("libidk_trace.so", [TRACE_SOURCE],
-                                [find_nvcc(), *NVCC_FLAGS])
+                                [find_nvcc(), *NVCC_FLAGS], headers=(TRACE_HEADER,))
 
 
 def _load():
@@ -45,6 +48,8 @@ def _load():
         lib.idk_trace_closest.argtypes = [vp] * 11 + [ci, vp]
         lib.idk_trace_any.restype = ci
         lib.idk_trace_any.argtypes = [vp] * 8 + [ci, vp]
+        lib.idk_trace_closest_steps.restype = ci
+        lib.idk_trace_closest_steps.argtypes = [vp] * 17 + [ci, vp]
         _lib = lib
     return _lib
 
@@ -137,11 +142,45 @@ def trace_any(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max) -> to
     return occ
 
 
+def trace_closest_steps(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor,
+                        t_max) -> tuple[Hit, torch.Tensor]:
+    """trace_closest plus each ray's traversal steps, (R,) int32, counted as
+    the stackless walk of ops/trace.py counts them (one node per step)."""
+    if _on_cpu(scene, o, d):
+        return _plain.trace_closest_steps(scene, o, d, t_max)
+    t_max = _check_inputs(scene, o, d, t_max)
+    threaded = {"node_min": (scene.node_min, torch.float32),
+                "node_max": (scene.node_max, torch.float32),
+                **{k: (getattr(scene, k), torch.int32)
+                   for k in ("node_first", "node_count", "hit_link", "miss_link")}}
+    for name, (x, dtype) in threaded.items():
+        if x.device != o.device or not x.is_contiguous() or x.dtype != dtype:
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {o.device}")
+    r = o.shape[0]
+    t = torch.empty(r, dtype=torch.float32, device=o.device)
+    slot = torch.empty(r, dtype=torch.int32, device=o.device)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    steps = torch.empty(r, dtype=torch.int32, device=o.device)
+    if r:
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = _load().idk_trace_closest_steps(
+            *(_ptr(x) for x, _ in threaded.values()), _ptr(scene.tri_p0),
+            _ptr(scene.tri_e1), _ptr(scene.tri_e2), _ptr(o), _ptr(d), _ptr(t_max),
+            _ptr(t), _ptr(slot), _ptr(u), _ptr(v), _ptr(steps), r,
+            ctypes.c_void_p(stream))
+        _raise_on(err, "trace_closest_steps")
+        trace_closest_steps.launches += 1
+    return Hit(t=t, slot=slot, u=u, v=v), steps
+
+
 # launch counts: each wrapper adds one where it launches its kernel
 trace_closest.launches = 0
 trace_any.launches = 0
+trace_closest_steps.launches = 0
 
 
 def reset_launch_counts():
     trace_closest.launches = 0
     trace_any.launches = 0
+    trace_closest_steps.launches = 0

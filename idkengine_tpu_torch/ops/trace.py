@@ -105,7 +105,10 @@ def inverse_direction(d: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.where(d.abs() < 1e-20, torch.where(d < 0, -tiny, tiny), d)
 
 
-def _traverse(scene: SceneArrays, o, d, t_max, any_hit: bool) -> Hit:
+def _traverse(scene: SceneArrays, o, d, t_max, any_hit: bool,
+              steps: torch.Tensor | None = None) -> Hit:
+    """The stackless walk; where `steps` (R,) int32 is given, each ray's
+    count of steps with its pointer >= 0 is added to it."""
     r = o.shape[0]
     dev = o.device
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(r).contiguous()
@@ -118,6 +121,8 @@ def _traverse(scene: SceneArrays, o, d, t_max, any_hit: bool) -> Hit:
     ids = torch.arange(r, device=dev)  # rays still traversing
     ptr = torch.zeros(r, dtype=torch.int64, device=dev)  # their DFS pointers
     while ids.numel():
+        if steps is not None:
+            steps[ids] += 1
         box_hit, _ = ray_aabb(o[ids], inv_d[ids], scene.node_min[ptr],
                               scene.node_max[ptr], t_best[ids])
         count = scene.node_count[ptr]
@@ -152,6 +157,14 @@ def trace_closest(scene: SceneArrays, o, d, t_max=INF) -> Hit:
 
     ref: BVHIntersect.glsl TraceRay — re-expressed stackless."""
     return _traverse(scene, o, d, t_max, False)
+
+
+def trace_closest_steps(scene: SceneArrays, o, d, t_max=INF) -> tuple[Hit, torch.Tensor]:
+    """trace_closest plus each ray's traversal steps, (R,) int32: the
+    iterations it spends with its pointer >= 0 (the debug-statistics path,
+    ref: BLAS.cs DebugStatistics + the BVH-cost heatmap)."""
+    steps = torch.zeros(o.shape[0], dtype=torch.int32, device=o.device)
+    return _traverse(scene, o, d, t_max, False, steps), steps
 
 
 def trace_any(scene: SceneArrays, o, d, t_max) -> torch.Tensor:

@@ -15,10 +15,14 @@ whole ray state, RNG state included, is permuted by the octant+Morton key
 and stays sorted; radiance returns to pixel order at the end, so sorting
 changes the traversal order and never the image.
 
+With `use_two_phase` every closest-hit and shadow trace goes through the
+two-phase traversal (ops/two_phase.py), as the JAX package routes it
+(pathtracer.py:614-646); the image is the one-phase image up to equal-t
+ties.
+
 The slice renders factor-only materials; textures, alpha-tested materials,
 normal maps, environment maps, instances, per-mesh shading overrides,
-adaptive bounce budgets, two-phase traversal and tiling raise
-NotImplementedError.
+adaptive bounce budgets and tiling raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 
 from ..ops.intersect import ray_sphere
 from ..ops.packet_trace import trace_any, trace_closest
+from ..ops.two_phase import two_phase_any, two_phase_closest
 from ..ops.trace import SceneArrays
 from ..utils import rng
 from ..utils.compression import decompress_normal
@@ -57,7 +62,7 @@ class PathTracerSettings:
     rr_min_bounce: int = 2
     nee: bool = True  # next-event estimation toward sphere lights
     use_packet_tracer: bool = True  # traversal kernel on the card (always)
-    use_two_phase: bool = False  # not ported
+    use_two_phase: bool = False  # traces through ops/two_phase.py
     do_ray_sorting: bool = False
     tile_size: int = 0  # only 0 (whole batch in one traversal) is ported
     light_spheres: bool = True
@@ -71,8 +76,8 @@ class PathTracerSettings:
 
 
 def _refuse_settings(s: PathTracerSettings):
-    for flag, what in ((s.use_two_phase, "use_two_phase"), (s.use_env_map, "use_env_map"),
-                       (s.env_nee, "env_nee"), (s.tile_size > 0, "tile_size>0"),
+    for flag, what in ((s.use_env_map, "use_env_map"), (s.env_nee, "env_nee"),
+                       (s.tile_size > 0, "tile_size>0"),
                        (s.max_trace_steps != _NO_MAX_STEPS, "max_trace_steps")):
         if flag:
             raise NotImplementedError(f"PathTracerSettings.{what} is not ported")
@@ -185,6 +190,9 @@ class PathTracer:
         r = w * h
         dev = self.device
         scene, lights, attr = self.scene, self.lights, self._attr
+        closest, occluded_fn = trace_closest, trace_any
+        if s.use_two_phase:
+            closest, occluded_fn = two_phase_closest, two_phase_any
 
         pixel_of = torch.arange(r, device=dev)  # ray i belongs to pixel pixel_of[i]
         state = rng.init_state(pixel_of, frame)
@@ -220,7 +228,7 @@ class PathTracer:
                 o, d = o.contiguous(), d.contiguous()
             rays_traced = rays_traced + alive.sum()
             t_max = torch.where(alive, 3.4e38, -1.0)
-            hit = trace_closest(scene, o, d, t_max)
+            hit = closest(scene, o, d, t_max)
 
             # analytic light spheres (ref: BVHIntersect.glsl:189-203 traces
             # lights before the BLAS)
@@ -300,7 +308,7 @@ class PathTracer:
                 rays_traced = rays_traced + do_nee.sum()
                 sh_tmax = torch.where(do_nee, sh_t - 2.0 * eps_o, -1.0)
                 sh_o = hp_point + gn * eps_o[..., None]
-                occluded = trace_any(scene, sh_o.contiguous(), ldir.contiguous(), sh_tmax)
+                occluded = occluded_fn(scene, sh_o.contiguous(), ldir.contiguous(), sh_tmax)
                 # full GGX BRDF (diffuse + rough specular); near-delta
                 # specular and transmission are left to BSDF sampling
                 brdf_cos = shading.ggx_brdf(ns, -d, ldir, albedo, metallic, roughness)

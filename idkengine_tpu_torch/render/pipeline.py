@@ -1,5 +1,6 @@
-"""The deferred render pipeline ("rasterizer mode").
-Counterpart: idkengine_tpu/render/pipeline.py (`DeferredSettings2`, `DeferredPipeline`).
+"""The render pipelines: deferred ("rasterizer mode") and path-traced.
+Counterpart: idkengine_tpu/render/pipeline.py (`DeferredSettings2`,
+`DeferredPipeline`, `PtPipelineSettings`, `PathTracerPipeline`).
 
 Frame graph (the reference's raster graph re-thought as ray + image-space
 passes, ref: Source/Render/RasterPipeline.cs:264-625):
@@ -14,6 +15,11 @@ card unless the caller asks for the CPU, and the scene must lie there.
 SSR, volumetric light, transparency (OIT), the rate classifier, PCF shadow
 maps and the render-scale (TAAU) mode are not ported: their toggles raise
 NotImplementedError, and their sub-settings are left out.
+
+Path-tracer mode (ref: PathTracerPipeline.cs): accumulate samples →
+à-trous denoise once `denoise_at_samples` are in → bloom → AgX tonemap.
+The adaptive bounce budget and multi-device sharding raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,11 +34,13 @@ from ..ops.packet_trace import trace_any, trace_closest
 from ..utils import mathutil as mu
 from . import bloom as bloom_mod
 from . import deferred as deferred_mod
+from . import denoise as denoise_mod
 from . import ssao as ssao_mod
 from . import taa as taa_mod
 from . import tonemap as tonemap_mod
 from .camera import Camera
 from .gbuffer import render_gbuffer
+from .pathtracer import PathTracer, PathTracerSettings
 from .vxgi import VoxelGrid, VxgiSettings
 
 
@@ -179,4 +187,76 @@ class DeferredPipeline:
         self._prev_cam_params = cam_params
         self.frame += 1
         with record_function("deferred/tonemap"):
+            return tonemap_mod.tonemap(color, s.tonemap)
+
+
+_PT_OUTPUTS = ("noisy", "denoised", "albedo", "normal")
+
+
+@dataclass
+class PtPipelineSettings:
+    denoise_at_samples: int = 32  # ref: PathTracerPipeline auto-denoise threshold
+    output: str = "denoised"  # noisy | denoised | albedo | normal (ref selector)
+    adaptive_rate: bool = False  # not ported (render/adaptive.py)
+    shard_devices: int = 0  # only 0 (one device) is ported
+    use_bloom: bool = True
+    bloom: bloom_mod.BloomSettings = field(default_factory=bloom_mod.BloomSettings)
+    tonemap: tonemap_mod.TonemapSettings = field(default_factory=tonemap_mod.TonemapSettings)
+    denoise: denoise_mod.DenoiseSettings = field(default_factory=denoise_mod.DenoiseSettings)
+
+
+def _refuse_pt_settings(s: PtPipelineSettings):
+    for flag, what in ((s.adaptive_rate, "adaptive_rate"),
+                       (s.shard_devices != 0, "shard_devices!=0")):
+        if flag:
+            raise NotImplementedError(f"PtPipelineSettings.{what} is not ported")
+    if s.output not in _PT_OUTPUTS:
+        raise ValueError(f"unknown output {s.output!r}; one of {_PT_OUTPUTS}")
+
+
+class PathTracerPipeline:
+    """PT accumulation + denoise + post (ref: PathTracerPipeline.cs) over a
+    built SceneDatabase."""
+
+    def __init__(self, scene_db, width: int, height: int,
+                 pt_settings: PathTracerSettings | None = None,
+                 settings: PtPipelineSettings | None = None, env_map=None, *,
+                 device="cuda"):
+        self.settings = settings or PtPipelineSettings()
+        _refuse_pt_settings(self.settings)
+        if scene_db.device_scene is None:
+            raise ValueError("build the scene database before making its pipeline")
+        self.db = scene_db
+        self.pt = PathTracer(scene_db.device_scene, scene_db.materials.soa(),
+                             scene_db.lights.soa(), width, height, pt_settings,
+                             env_map=env_map, device=device)
+        self.width, self.height = width, height
+
+    def reset_accumulation(self):
+        self.pt.reset_accumulation()
+
+    def render_frame(self, camera: Camera) -> torch.Tensor:
+        """Adds a frame's samples; returns the (H,W,3) [0,1] image of the
+        chosen output."""
+        s = self.settings
+        _refuse_pt_settings(s)
+        h, w = self.height, self.width
+        # each pass is a named range for torch.profiler
+        with record_function("pt_sample"):
+            img = self.pt.render_frame(camera)
+        alb, nrm, dep = self.pt._last_aovs
+        if s.output == "albedo":
+            return torch.clamp(alb.reshape(h, w, 3), 0.0, 1.0)
+        if s.output == "normal":
+            return nrm.reshape(h, w, 3) * 0.5 + 0.5
+        color = img
+        if s.output == "denoised" and self.pt.accumulated_samples >= s.denoise_at_samples:
+            with record_function("denoise"):
+                color = denoise_mod.atrous_denoise(
+                    img, alb.reshape(h, w, 3), nrm.reshape(h, w, 3), dep.reshape(h, w),
+                    s.denoise, variance=self.pt.variance())
+        if s.use_bloom:
+            with record_function("bloom"):
+                color = color + bloom_mod.bloom(color, s.bloom)
+        with record_function("tonemap"):
             return tonemap_mod.tonemap(color, s.tonemap)

@@ -74,14 +74,14 @@ def test_sorting_leaves_the_image_unchanged(port_db):
     assert float(on.last_rays_traced) == float(off.last_rays_traced)
 
 
-@pytest.mark.parametrize("what", ["use_two_phase", "use_env_map", "env_nee", "tile_size",
+@pytest.mark.parametrize("what", ["use_env_map", "env_nee", "tile_size",
                                   "max_trace_steps", "instances", "slot_shading", "env_map",
                                   "rate_depth", "alpha", "texture"])
 def test_features_outside_the_slice_raise(port_db, what):
     db, scene = port_db
     mats = db.materials.soa()
     with pytest.raises(NotImplementedError):
-        if what in ("use_two_phase", "use_env_map", "env_nee"):
+        if what in ("use_env_map", "env_nee"):
             _port_pt(port_db, **{what: True})
         elif what == "tile_size":
             _port_pt(port_db, tile_size=4096)

@@ -5,12 +5,14 @@ these tests skip.
 Scatter-max: the max of a set of floats does not depend on the order of
 the atomics, so the kernel equals its plain version exactly.
 
-Traversal:
+Traversal (one-phase, two-phase and the steps kernel):
 the kernel is built with -fmad=false and performs the plain version's float
 operations in the same order, so t, u and v agree bit for bit wherever both
 pick the same triangle. Slots may differ only at ties (two triangles at the
 same t, met in another order: the kernel visits near children first, the
-plain version in DFS order), on at most 0.1% of rays.
+plain version in DFS order), on at most 0.1% of rays. Phase A's count of
+wanted leaves does not depend on the visiting order, so it is equal on
+every ray, and the lists hold the same sets where they did not overflow.
 """
 import numpy as np
 import pytest
@@ -201,5 +203,135 @@ def test_deferred_pipeline_on_card_matches_cpu(dev):
         if device == dev:
             assert vs.scatter_max_dense.launches == 2
             assert kern.trace_closest.launches == 2 and kern.trace_any.launches == 8
+    assert np.isfinite(imgs[0]).all() and imgs[0].std() > 0.01
+    assert float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2))) <= 1e-3
+
+
+def _list_sets(lists):
+    """Each ray's recorded leaf ids as a sorted row, -1 padded."""
+    return torch.sort(lists, dim=1).values
+
+
+@pytest.mark.parametrize("d_slots", [2, 8])
+def test_phase_a_kernel_matches_plain(dev, scenes, d_slots):
+    """cnt equal on every ray; where cnt <= D the same set of leaves, in
+    another order (near child first against DFS order); -1 after the
+    recorded entries; dead rays get cnt 0."""
+    from idkengine_tpu_torch.ops import two_phase as tp
+
+    _, sc, _ = scenes
+    o, d = _rays(sc, 1 << 15, 4, dev)
+    t_max = torch.where(torch.arange(o.shape[0], device=dev) % 7 == 0, -1.0, 3.4e38)
+    before = tp.phase_a.launches
+    lists, cnt = tp.phase_a(sc, o, d, t_max, d_slots)
+    torch.cuda.synchronize()
+    assert tp.phase_a.launches == before + 1
+    p_lists, p_cnt = tp.phase_a_plain(sc, o, d, t_max, d_slots)
+    assert torch.equal(cnt, p_cnt) and (cnt[t_max < 0] == 0).all()
+    assert (cnt > d_slots).any()
+    n_rec = (lists >= 0).sum(1)
+    assert torch.equal(n_rec, torch.clamp(cnt, max=d_slots))
+    assert not ((lists[:, 1:] >= 0) & (lists[:, :-1] < 0)).any()
+    fine = cnt <= d_slots
+    assert torch.equal(_list_sets(lists[fine]), _list_sets(p_lists[fine]))
+
+
+def test_phase_b_kernels_match_plain(dev, scenes):
+    """On the kernel's own lists: t, u, v bit-equal and slots equal (both
+    take the first of equal minima in list order); occlusion equal."""
+    from idkengine_tpu_torch.ops import two_phase as tp
+
+    _, sc, _ = scenes
+    o, d = _rays(sc, 1 << 15, 5, dev)
+    t_max = torch.where(torch.arange(o.shape[0], device=dev) % 5 == 0, -1.0, 3.4e38)
+    lists, _ = tp.phase_a(sc, o, d, t_max, 8)
+    got = tp.phase_b_closest(sc, lists, o, d, t_max)
+    want = tp.phase_b_closest_plain(sc, lists, o, d, t_max)
+    for k in ("t", "slot", "u", "v"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    s_tmax = torch.where(t_max > 0, 6.0, -1.0)
+    assert torch.equal(tp.phase_b_any(sc, lists, o, d, s_tmax),
+                       tp.phase_b_any_plain(sc, lists, o, d, s_tmax))
+
+
+def test_two_phase_on_card_matches_one_phase(dev, scenes):
+    """The two-phase trace (phase A, phase B, one fallback launch) against
+    the one-phase kernel: the rule of the closest-hit kernel test."""
+    from idkengine_tpu_torch.ops import two_phase as tp
+
+    _, sc, _ = scenes
+    o, d = _rays(sc, 1 << 15, 6, dev)
+    t_max = torch.where(torch.arange(o.shape[0], device=dev) % 9 == 0, -1.0, 3.4e38)
+    tp.reset_launch_counts()
+    kern.reset_launch_counts()
+    got = tp.two_phase_closest(sc, o, d, t_max, 4)
+    assert (tp.phase_a.launches, tp.phase_b_closest.launches,
+            kern.trace_closest.launches) == (1, 1, 1)
+    want = kern.trace_closest(sc, o, d, t_max)
+    gs, ws = got.slot.cpu().numpy(), want.slot.cpu().numpy()
+    np.testing.assert_array_equal(gs >= 0, ws >= 0)
+    assert (gs == ws).mean() >= SLOT_AGREE
+    np.testing.assert_allclose(got.t.cpu().numpy(), want.t.cpu().numpy(), rtol=1e-6)
+    s_tmax = torch.where(t_max > 0, 6.0, -1.0)
+    assert torch.equal(tp.two_phase_any(sc, o, d, s_tmax, 4), kern.trace_any(sc, o, d, s_tmax))
+    assert tp.phase_b_any.launches == 1 and kern.trace_any.launches == 2
+
+
+def test_two_phase_refuses_bad_inputs(dev, scenes):
+    from idkengine_tpu_torch.ops import two_phase as tp
+
+    _, sc, _ = scenes
+    o, d = _rays(sc, 64, 7, dev)
+    lists, _ = tp.phase_a(sc, o, d, 3.4e38, 4)
+    with pytest.raises(TypeError):
+        tp.phase_b_closest(sc, lists.long(), o, d, 3.4e38)
+    with pytest.raises(ValueError):
+        tp.phase_b_any(sc, lists[:32], o, d, 1.0)
+    with pytest.raises(ValueError):
+        tp.phase_a(sc, o, d, 1.0, 0)
+    with pytest.raises(ValueError):
+        tp.phase_a(sc, o.cpu(), d, 1.0)
+
+
+def test_steps_kernel_matches_plain(dev, scenes):
+    """Both walk the threaded tree one node per step in the same order:
+    steps, slots, t, u and v equal on every ray."""
+    _, sc, _ = scenes
+    o, d = _rays(sc, 1 << 15, 8, dev)
+    t_max = torch.where(torch.arange(o.shape[0], device=dev) % 7 == 0, -1.0, 3.4e38)
+    before = kern.trace_closest_steps.launches
+    got, steps = kern.trace_closest_steps(sc, o, d, t_max)
+    torch.cuda.synchronize()
+    assert kern.trace_closest_steps.launches == before + 1
+    want, want_steps = plain.trace_closest_steps(sc, o, d, t_max)
+    assert torch.equal(steps, want_steps)
+    for k in ("t", "slot", "u", "v"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+
+
+def test_two_phase_pipeline_on_card_matches_cpu(dev):
+    """PathTracerPipeline with use_two_phase, denoising from the second
+    frame: the card's frames go through phase A, phase B and the fallback."""
+    from idkengine_tpu_torch.ops import two_phase as tp
+    from idkengine_tpu_torch.render import PathTracerPipeline, PtPipelineSettings
+
+    cam = Camera(position=np.array([0.0, 3.0, 24.0], np.float32), yaw=-90.0, fov_y=65.0)
+    settings = PathTracerSettings(ray_depth=2, russian_roulette=False, do_ray_sorting=True,
+                                  use_two_phase=True)
+    imgs = []
+    for device in (dev, "cpu"):
+        db = SceneDatabase(BuildSettings(**BUILD))
+        db.add_model(atrium(8000))
+        db.build(device)
+        db.lights.add([0.0, 10.5, 0.0], [40.0, 38.0, 35.0], radius=0.8)
+        db.lights.add([6.0, 4.0, -20.0], [20.0, 10.0, 5.0], radius=0.5)
+        pipe = PathTracerPipeline(db, 64, 48, settings, PtPipelineSettings(denoise_at_samples=2),
+                                  device=device)
+        tp.reset_launch_counts()
+        for _ in range(3):
+            img = pipe.render_frame(cam)
+        imgs.append(img.cpu().numpy())
+        if device == dev:
+            assert tp.phase_a.launches == 12 and tp.phase_b_closest.launches == 6
     assert np.isfinite(imgs[0]).all() and imgs[0].std() > 0.01
     assert float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2))) <= 1e-3

@@ -10,8 +10,8 @@ import sys
 
 import idkengine_tpu_torch
 from idkengine_tpu_torch.bvh import builder
-from idkengine_tpu_torch.ops import packet_trace, voxel_scatter
-from idkengine_tpu_torch.render import DeferredPipeline, PathTracer
+from idkengine_tpu_torch.ops import packet_trace, two_phase, voxel_scatter
+from idkengine_tpu_torch.render import DeferredPipeline, PathTracer, PathTracerPipeline
 from idkengine_tpu_torch.render.vxgi import VoxelGrid
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase
 
@@ -25,6 +25,8 @@ def test_import_leaves_jax_out():
             "import idkengine_tpu_torch.render.pipeline, idkengine_tpu_torch.render.vxgi\n"
             "import idkengine_tpu_torch.scene.scene_db, idkengine_tpu_torch.ops.packet_trace\n"
             "import idkengine_tpu_torch.ops.voxel_scatter, idkengine_tpu_torch.bvh.builder\n"
+            "import idkengine_tpu_torch.ops.two_phase, idkengine_tpu_torch.render.debug_view\n"
+            "import idkengine_tpu_torch.render.denoise\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'idkengine_tpu')]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": REPO}
@@ -44,18 +46,21 @@ def test_no_module_imports_jax():
 
 
 def test_compiled_sources_lie_inside_the_port():
-    sources = [builder.BVH_SOURCE, packet_trace.TRACE_SOURCE,
-               voxel_scatter.VOXEL_SCATTER_SOURCE, *glob.glob(os.path.join(PKG, "csrc", "*"))]
+    sources = [builder.BVH_SOURCE, packet_trace.TRACE_SOURCE, packet_trace.TRACE_HEADER,
+               two_phase.TWO_PHASE_SOURCE, voxel_scatter.VOXEL_SCATTER_SOURCE,
+               *glob.glob(os.path.join(PKG, "csrc", "*"))]
     pkg = os.path.realpath(PKG) + os.sep
     for src in sources:
         assert os.path.isfile(src), src
         assert os.path.realpath(src).startswith(pkg), src
-    # every kernel source in csrc/ is one that a wrapper builds
+    # every kernel source in csrc/ is one that a wrapper builds or includes
     assert sorted(glob.glob(os.path.join(PKG, "csrc", "*"))) == sorted(
-        [packet_trace.TRACE_SOURCE, voxel_scatter.VOXEL_SCATTER_SOURCE])
+        [packet_trace.TRACE_SOURCE, packet_trace.TRACE_HEADER, two_phase.TWO_PHASE_SOURCE,
+         voxel_scatter.VOXEL_SCATTER_SOURCE])
 
 
 def test_entry_points_default_to_the_card():
     for fn, name in ((SceneDatabase.build, "device"), (PathTracer.__init__, "device"),
-                     (DeferredPipeline.__init__, "device"), (VoxelGrid.__init__, "device")):
+                     (DeferredPipeline.__init__, "device"), (VoxelGrid.__init__, "device"),
+                     (PathTracerPipeline.__init__, "device")):
         assert inspect.signature(fn).parameters[name].default == "cuda", fn

@@ -1,0 +1,147 @@
+"""Port's two-phase traversal (plain versions, CPU) vs the JAX package's
+two-phase trace over resident tables, whose phase A is kernel K5a (in
+interpret mode, as the JAX package's own tests run it), and vs the port's
+own one-phase trace; phase-A invariants. Kernel K5b is in
+test_torch_two_phase_steered.py.
+
+Tolerances: hit presence equal on every ray; slots differ only on equal-t
+ties (t within 1e-6: two triangles meeting at the hit point, met in another
+order; the port lists leaves in its own order, the JAX kernel by the
+packet's dominant sign); t within 1e-5 relative where slots agree (XLA and
+PyTorch may round the same Möller test differently in the last place).
+Occlusion equal on every ray. Against the port's own one-phase trace (same
+arithmetic), t is bit-equal where slots agree. `cnt` is compared with the port's own plain
+version only: the JAX package's tree is BVH8, its leaves are not the port's.
+"""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from idkengine_tpu.ops import two_phase as j_tp  # noqa: E402
+from idkengine_tpu.scene.procedural import atrium as j_atrium  # noqa: E402
+from idkengine_tpu.scene.scene_db import SceneDatabase as JSceneDatabase  # noqa: E402
+from idkengine_tpu_torch.ops import packet_trace as t_pt  # noqa: E402
+from idkengine_tpu_torch.ops import two_phase as tp  # noqa: E402
+
+from test_torch_trace import BENCH, T_REL, _port_scene, _rays  # noqa: E402
+
+D = 4  # small enough that lists overflow into the fallback
+
+
+def assert_same_final_hits(got, want_t, want_slot, t_rel=T_REL):
+    """Closest hits equal up to equal-t ties (see the module docstring)."""
+    gs, gt = got.slot.numpy(), got.t.numpy()
+    ws, wt = np.asarray(want_slot), np.asarray(want_t)
+    np.testing.assert_array_equal(gs >= 0, ws >= 0)
+    hit = ws >= 0
+    assert hit.mean() > 0.2, "rays should mostly hit"
+    same = hit & (gs == ws)
+    np.testing.assert_allclose(gt[same], wt[same], rtol=t_rel, atol=0)
+    tie = hit & (gs != ws)
+    np.testing.assert_allclose(gt[tie], wt[tie], rtol=1e-6, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    db = JSceneDatabase(BENCH)
+    db.add_model(j_atrium(8000))
+    jsc = db.build()
+    return db, jsc, _port_scene(jsc)
+
+
+def test_matches_k5a_interpret(scenes):
+    """Resident tables, phase A in kernel K5a (interpret mode), D = 4 so
+    that overflowed rays take the fallback, following the JAX package's
+    TestResident."""
+    db, jsc, sc = scenes
+    assert isinstance(db.packet_scene, j_tp.pk.PacketScene) and db.packet_scene.wide
+    o, d = _rays(jsc, 1024, 11)
+    n = len(o)
+    want = j_tp.two_phase_closest(db.packet_scene, db.packet_leaf_first, db.packet_leaf_count,
+                                  jnp.asarray(o), jnp.asarray(d),
+                                  jnp.full((n,), 3.4e38, jnp.float32),
+                                  interpret=True, rows=8, d_slots=D)
+    ot, dt = torch.from_numpy(o), torch.from_numpy(d)
+    lists, cnt = tp.phase_a(sc, ot, dt, 3.4e38, D)
+    assert (cnt > D).any(), "some lists should overflow at D=4"
+    got = tp.two_phase_closest(sc, ot, dt, 3.4e38, D)
+    assert_same_final_hits(got, want.t, want.slot)
+    occ_want = j_tp.two_phase_any(db.packet_scene, db.packet_leaf_first, db.packet_leaf_count,
+                                  jnp.asarray(o), jnp.asarray(d),
+                                  jnp.full((n,), 15.0, jnp.float32),
+                                  interpret=True, rows=8, d_slots=D)
+    occ_got = tp.two_phase_any(sc, ot, dt, 15.0, D)
+    np.testing.assert_array_equal(occ_got.numpy(), np.asarray(occ_want))
+
+
+@pytest.mark.parametrize("d_slots", [2, D, 8])
+def test_matches_own_one_phase(scenes, d_slots):
+    _, jsc, sc = scenes
+    o, d = (torch.from_numpy(x) for x in _rays(jsc, 2048, 12))
+    t_max = torch.where(torch.arange(2048) % 9 == 0, -1.0, 3.4e38)
+    got = tp.two_phase_closest(sc, o, d, t_max, d_slots)
+    want = t_pt.trace_closest(sc, o, d, t_max)
+    assert_same_final_hits(got, want.t, want.slot, t_rel=0)
+    np.testing.assert_array_equal(got.t.numpy(), want.t.numpy())  # t_max on a miss
+    s_tmax = torch.where(t_max > 0, 6.0, -1.0)
+    np.testing.assert_array_equal(tp.two_phase_any(sc, o, d, s_tmax, d_slots).numpy(),
+                                  t_pt.trace_any(sc, o, d, s_tmax).numpy())
+
+
+def test_phase_a_invariants(scenes):
+    _, jsc, sc = scenes
+    o, d = (torch.from_numpy(x) for x in _rays(jsc, 1024, 13))
+    t_max = torch.where(torch.arange(1024) % 2 == 0, 3.4e38, -1.0)
+    lists2, cnt2 = tp.phase_a(sc, o, d, t_max, 2)
+    lists8, cnt8 = tp.phase_a(sc, o, d, t_max, 8)
+    assert lists2.shape == (1024, 2) and lists2.dtype == torch.int32
+    # recorded entries = min(cnt, D), left-packed
+    for lists, k in ((lists2, 2), (lists8, 8)):
+        rec = lists >= 0
+        np.testing.assert_array_equal(rec.sum(1).numpy(), torch.clamp(cnt8, max=k).numpy())
+        assert not (rec[:, 1:] & ~rec[:, :-1]).any()
+    assert (cnt2 > 2).any(), "expect overflow at D=2 in a real scene"
+    # cnt does not depend on D, and the plain lists are one DFS order
+    np.testing.assert_array_equal(cnt2.numpy(), cnt8.numpy())
+    np.testing.assert_array_equal(lists2.numpy(), lists8[:, :2].numpy())
+    # every listed id is a leaf; dead rays stay dead
+    listed = lists8[lists8 >= 0].long()
+    assert (sc.node_count[listed] > 0).all()
+    dead = t_max < 0
+    assert (cnt8[dead] == 0).all() and (lists8[dead] == -1).all()
+    hit = tp.two_phase_closest(sc, o, d, t_max, 2)
+    assert (hit.slot[dead] == -1).all() and (hit.t[dead] == -1.0).all()
+
+
+def test_phase_b_over_complete_lists(scenes):
+    """Where no list overflowed, phase B alone gives the one-phase t; a leaf
+    listed twice changes nothing (a later equal t never replaces the hit);
+    phase_b_any is phase_b_closest's hit mask."""
+    _, jsc, sc = scenes
+    o, d = (torch.from_numpy(x) for x in _rays(jsc, 512, 14))
+    lists, cnt = tp.phase_a(sc, o, d, 3.4e38, 8)
+    fine = cnt <= 8
+    hit = tp.phase_b_closest(sc, lists, o, d, 3.4e38)
+    want = t_pt.trace_closest(sc, o, d, 3.4e38)
+    np.testing.assert_array_equal(hit.t.numpy()[fine.numpy()], want.t.numpy()[fine.numpy()])
+    doubled = torch.cat([lists[:, :1], lists[:, :1]], dim=1).contiguous()
+    a = tp.phase_b_closest(sc, lists[:, :1].contiguous(), o, d, 3.4e38)
+    b = tp.phase_b_closest(sc, doubled, o, d, 3.4e38)
+    for k in ("t", "slot", "u", "v"):
+        np.testing.assert_array_equal(getattr(a, k).numpy(), getattr(b, k).numpy())
+    np.testing.assert_array_equal(tp.phase_b_any(sc, lists, o, d, 3.4e38).numpy(),
+                                  (hit.slot >= 0).numpy())
+
+
+def test_cpu_tensors_take_the_plain_version(scenes):
+    _, jsc, sc = scenes
+    o, d = (torch.from_numpy(x) for x in _rays(jsc, 64, 15))
+    tp.reset_launch_counts()
+    t_pt.reset_launch_counts()
+    tp.two_phase_closest(sc, o, d, 3.4e38)
+    tp.two_phase_any(sc, o, d, 5.0)
+    assert (tp.phase_a.launches, tp.phase_b_closest.launches, tp.phase_b_any.launches,
+            t_pt.trace_closest.launches, t_pt.trace_any.launches) == (0, 0, 0, 0, 0)
