@@ -5,9 +5,10 @@
 
 Phases (any failure raises and ends the run with a nonzero exit code):
   1. the card's name and power limit (nvidia-smi);
-  2. build the native BVH library and the three CUDA libraries (BVH
-     traversal, two-phase traversal, voxel scatter-max) from the repository's
-     sources into build/, the four compilers started together;
+  2. build the native BVH library and the eight CUDA libraries (BVH
+     traversal, two-phase traversal, voxel scatter-max, the five probes)
+     from the repository's sources into build/, the nine compilers started
+     together;
   3. build the 2.8M-triangle atrium with the benchmark's build settings,
      lights and camera (SceneDatabase.build on the card);
   4. trace the main path's ray batches (1920x1080 primary rays; shadow rays
@@ -44,7 +45,12 @@ Phases (any failure raises and ends the run with a nonzero exit code):
  11. traversal-cost debug view at 1920x1080: the steps kernel against the
      plain stackless trace on the view's primaries;
  12. a small two-phase pipeline render on the card against the CPU's;
- 13. print the kernels' JSON line, then the result line.
+ 13. probes: the TPU microbenchmarks' ports (idkengine_tpu_torch/tools/,
+     P1-P6) through their mains at the tools' default sizes, each variant's
+     device time and clock64 cycles per step with the launch counts reset
+     just before; then each kernel against its plain version at a reduced
+     step count (outputs and chain state);
+ 14. print the kernels' JSON line, then the result line.
 
 The script imports nothing of JAX. Without a CUDA card it exits nonzero
 before printing any result.
@@ -56,6 +62,11 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+# the card's rates and the CUDA-event timer (fails outside a checkout)
+from idkengine_tpu_torch.tools._probe import F32_OPS_PER_S, HBM_BYTES_PER_S  # noqa: E402
+from idkengine_tpu_torch.tools._probe import time_ms as cuda_time_ms  # noqa: E402
 
 TRIS = 2_800_000
 WIDTH, HEIGHT, DEPTH = 1920, 1080, 2
@@ -90,31 +101,36 @@ KERNELS_WHERE = {  # route, source and the Pallas kernels each wrapper's kernel 
 SMALL_RMSE = 1e-3  # card vs CPU render of a small atrium (golden contract)
 VXGI_RES = 256  # bench.py:255's record and the reference's default
 DEFERRED_FRAMES = 4
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (data sheet)
 HAND_KERNELS = ("trace_kernel", "trace_steps_kernel", "scatter_max_kernel",  # __global__
-                "phase_a_kernel", "phase_b_kernel")  # names in csrc/
+                "phase_a_kernel", "phase_b_kernel", "probe_slab_kernel",  # names in csrc/
+                "probe_vpu_kernel", "probe_form_kernel", "probe_reduce_kernel",
+                "probe_dual_kernel", "probe_prims_kernel")
 PT_PASSES = ("pt_sample", "denoise", "bloom", "tonemap")  # PathTracerPipeline's ranges
 DENOISE_AT = 32  # PtPipelineSettings' default: frames from 32 samples on denoise
 OVERFLOW_CHECK = 65_536  # overflow rays whose lists are checked against the full plain list
+PROBE_CHECK_ITERS = 256  # steps of each probe's kernel-vs-plain check
+PROBE_CHECK_VISITS = 16  # leaf visits of bench_mxu_leaf's kernel-vs-plain check
+PROBE_SRC = "idkengine_tpu_torch/csrc/"
+PROBES_WHERE = {  # the probe wrappers: source and the tools' Pallas kernels they replace
+    "bench_slab": {"route": "cuda", "source": PROBE_SRC + "bench_slab.cu",
+                   "replaces": "tools/bench_slab.py:31"},  # P1 make(mode, reduce_mode)
+    "bench_mxu_leaf": {"route": "cuda", "source": PROBE_SRC + "bench_mxu_leaf.cu",
+                       "replaces": "tools/bench_mxu_leaf.py:92",  # P2 kernel_vpu
+                       "also_replaces": ["tools/bench_mxu_leaf.py:129"]},  # kernel_mxu
+    "bench_reduce": {"route": "cuda", "source": PROBE_SRC + "bench_reduce.cu",
+                     "replaces": "tools/bench_reduce.py:21"},  # P3 make(mode)
+    "bench_dual": {"route": "cuda", "source": PROBE_SRC + "bench_dual.cu",
+                   "replaces": "tools/bench_dual.py:57",  # P4 kernel_d1
+                   "also_replaces": ["tools/bench_dual.py:70", "tools/bench_dual.py:95"]},
+    "bench_prims": {"route": "cuda", "source": PROBE_SRC + "bench_prims.cu",
+                    "replaces": "tools/bench_prims.py:54"},  # P5 base_loop, bodies :71-116
+    "bench_prims_extra": {"route": "cuda", "source": PROBE_SRC + "bench_prims.cu",
+                          "replaces": "tools/bench_prims.py:158"},  # P6 base_loop, a4 :203
+}
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def cuda_time_ms(fn, reps):
-    """Mean device time of fn() over reps launches, after one warm-up."""
-    import torch
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def phase_card():
@@ -128,17 +144,21 @@ def phase_card():
 def phase_build():
     from idkengine_tpu_torch.bvh import builder
     from idkengine_tpu_torch.ops import packet_trace, two_phase, voxel_scatter
+    from idkengine_tpu_torch.tools import (bench_dual, bench_mxu_leaf, bench_prims, bench_reduce,
+                                           bench_slab)
 
+    libraries = (packet_trace, two_phase, voxel_scatter, bench_slab, bench_mxu_leaf,
+                 bench_reduce, bench_dual, bench_prims)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(1 + len(libraries)) as pool:
         bvh = pool.submit(builder.build_library)
-        cuda = [pool.submit(m.build_kernels) for m in (packet_trace, two_phase, voxel_scatter)]
+        cuda = [pool.submit(m.build_kernels) for m in libraries]
         bvh.result()
         ptxas = "".join(f.result()[1] for f in cuda)
-    log(f"# build (BVH library; trace, two-phase and scatter-max kernels; the four "
-        f"compilers started together): {time.perf_counter() - t0:.1f} s")
+    log(f"# build (BVH library; trace, two-phase, scatter-max and five probe libraries; the "
+        f"{1 + len(libraries)} compilers started together): {time.perf_counter() - t0:.1f} s")
     for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if any(k in line for k in ("entry function", "registers", "spill")) or "error" in line.lower():
             log(f"#   {line.strip()}")
 
 
@@ -907,11 +927,127 @@ def phase_small_pipeline(dev):
         raise AssertionError("card pipeline render disagrees with the CPU render")
 
 
-def main():
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+def compare_probe(got, want, t_tol):
+    """A probe kernel's result against its plain version's; raises where
+    they disagree. Without t_tol: the output and every chain tensor equal
+    bit for bit. With it (bench_mxu_leaf, `T_TOL` of the kernel): the same
+    slot on at least AGREE of the rays (the rest are ties) and t within
+    t_tol where the slots are equal. Returns (largest |difference| of t
+    where the slots are equal, or 0; share of rays whose slots agree)."""
     import torch
 
-    import idkengine_tpu_torch  # noqa: F401  (fails outside a checkout)
+    if t_tol is None:
+        for key, a, b in [("out", got.out, want.out),
+                          *((k, got.chain[k], want.chain[k]) for k in want.chain)]:
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"{key} differs from the plain version")
+        return 0.0, 1.0
+    same = got.chain["slot"] == want.chain["slot"]
+    share = same.float().mean().item()
+    if share < AGREE:
+        raise AssertionError(f"slot agreement {share:.6f} < {AGREE}")
+    t, t_want = got.chain["t"][same], want.chain["t"][same]
+    if not torch.allclose(t, t_want, **t_tol):
+        raise AssertionError(f"t differs beyond {t_tol} where the slots are equal")
+    return (t - t_want).abs().max().item(), share
+
+
+def read_probe_launches():
+    from idkengine_tpu_torch.tools import (bench_dual, bench_mxu_leaf, bench_prims, bench_reduce,
+                                           bench_slab)
+
+    return {"bench_slab": bench_slab.slab_loop.launches,
+            "bench_mxu_leaf": bench_mxu_leaf.vpu_moller.launches + bench_mxu_leaf.mxu_form.launches,
+            "bench_reduce": bench_reduce.reduce_loop.launches,
+            "bench_dual": bench_dual.dual_loop.launches,
+            "bench_prims": bench_prims.prims_loop.launches,
+            "bench_prims_extra": bench_prims.prims_extra_loop.launches}
+
+
+def split_extra(prims: dict) -> tuple[dict, dict]:
+    """bench_prims' variants (or results) apart from extra()'s a4."""
+    from idkengine_tpu_torch.tools import bench_prims as bp
+
+    extra = bp.label(bp.EXTRA, bp.DEFAULT_K)
+    return {k: v for k, v in prims.items() if k != extra}, {extra: prims[extra]}
+
+
+def phase_probes(dev, card):
+    """Phase 13: the ports of the TPU microbenchmarks P1-P6. Their mains
+    run as a user runs them (`python -m idkengine_tpu_torch.tools.<name>`,
+    the tools' default sizes; bench_prims with `16 extra`), with every
+    probe's launch count reset just before and read just after; each
+    prints its variants' device time and clock64 cycles per step. Then
+    every variant again at PROBE_CHECK_ITERS steps (PROBE_CHECK_VISITS
+    leaf visits): its kernel against its plain version, both on the card,
+    and both timed there (the plain version's second call, on the host
+    clock, since it reads values back each step). Returns the six entries
+    of the kernels' JSON line: `ms`, `plain_ms` and `bound_ms` are the
+    first variant's at the check's size; each variant's time, cycles and
+    bound at the tool's size are under `tool_size`."""
+    import torch
+
+    from idkengine_tpu_torch.tools import (bench_dual, bench_mxu_leaf, bench_prims, bench_reduce,
+                                           bench_slab)
+
+    t_start = time.perf_counter()
+    for module in (bench_slab, bench_mxu_leaf, bench_reduce, bench_dual, bench_prims):
+        module.reset_launch_counts()
+    runs = {"bench_slab": bench_slab.main([]), "bench_mxu_leaf": bench_mxu_leaf.main([]),
+            "bench_reduce": bench_reduce.main([]), "bench_dual": bench_dual.main([])}
+    runs["bench_prims"], runs["bench_prims_extra"] = split_extra(
+        bench_prims.main([str(bench_prims.DEFAULT_K), "extra"]))
+    launches = read_probe_launches()
+    log(f"# probes through their mains on {card}: {time.perf_counter() - t_start:.1f} s, "
+        f"launches {launches}, vpu/form agreement {runs['bench_mxu_leaf'].pop('agreement'):.4f}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} was not launched by the probes' mains")
+
+    n = PROBE_CHECK_ITERS
+    checks = {"bench_slab": bench_slab.variants(dev, iters=n),
+              "bench_mxu_leaf": bench_mxu_leaf.variants(dev, n_visits=PROBE_CHECK_VISITS),
+              "bench_reduce": bench_reduce.variants(dev, n), "bench_dual": bench_dual.variants(dev, n)}
+    checks["bench_prims"], checks["bench_prims_extra"] = split_extra(
+        bench_prims.variants(dev, n, extra=True))
+    entries = []
+    for name, variants in checks.items():
+        steps = PROBE_CHECK_VISITS if name == "bench_mxu_leaf" else n
+        per = {}
+        for label, v in variants.items():
+            run = runs[name][label]
+            err, share = compare_probe(v.kernel(), v.plain(),
+                                       bench_mxu_leaf.T_TOL.get(label) if name == "bench_mxu_leaf"
+                                       else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v.plain()
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            ms = cuda_time_ms(v.kernel, 3)
+            cyc = {k: c for k, c in run.items() if k.startswith("cycles_per_")}
+            per[label] = dict(steps=steps, ms=ms, plain_ms=plain_ms, **v.bound, max_abs_err=err,
+                              agreement=share, tool_size=dict(ms=run["ms"], **cyc, **run["bound"]))
+            b = run["bound"]
+            log(f"# {name} {label}: at the tool's size {run['ms']:.4f} ms, "
+                f"{next(iter(cyc.values())):.1f} {next(iter(cyc))}, bound {b['bound_ms']:.6f} ms "
+                f"by {b['bound_by']} (one SM {b['one_sm_ms']:.4f} ms); at {steps} steps kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {v.bound['bound_ms']:.6f} ms; "
+                + ("bit-equal" if name != "bench_mxu_leaf" else
+                   f"slots agree on {share:.6f}, max |diff| of t {err:g}"))
+        first = next(iter(per.values()))
+        entries.append(dict(name=name, **PROBES_WHERE[name], launches=launches[name],
+                            launches_by_path={"probes": launches[name]}, steps=first["steps"],
+                            ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                            bound_by=first["bound_by"], library_ms=None,
+                            max_abs_err=max(p["max_abs_err"] for p in per.values()),
+                            variants=per))
+    log(f"# phase 13 (probes) took {time.perf_counter() - t_start:.1f} s")
+    return entries
+
+
+def main():
+    import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -947,12 +1083,15 @@ def main():
         db, scene, cam, dev, card)
     phase_small_pipeline(dev)
     log(f"# phases 1-12 took {time.perf_counter() - t_start:.1f} s")
+    probes = phase_probes(dev, card)
+    log(f"# phases 1-13 took {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, where in KERNELS_WHERE.items():
         by_path = {path: counts[name] for path, counts in launches.items()}
         kernels.append(dict(name=name, **where, launches=sum(by_path.values()),
                             launches_by_path=by_path, **timings[name]))
+    kernels += probes
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

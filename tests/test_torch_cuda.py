@@ -335,3 +335,96 @@ def test_two_phase_pipeline_on_card_matches_cpu(dev):
             assert tp.phase_a.launches == 12 and tp.phase_b_closest.launches == 6
     assert np.isfinite(imgs[0]).all() and imgs[0].std() > 0.01
     assert float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2))) <= 1e-3
+
+
+# The probes (idkengine_tpu_torch/tools/, the TPU microbenchmarks P1-P6):
+# each kernel performs its plain version's operations in the same order
+# (float sums in the order of `_probe.cta_sum`), so outputs and chain state
+# are equal; bench_mxu_leaf's kernels keep the plain versions' slots on
+# 99.9% of the rays (the rest are ties) and t within `T_TOL` where the slots
+# agree (mxu_form's FFMA rounds once where the plain version rounds twice).
+PROBE_STEPS = 100  # more than 64, so every mask plane of the slab probe is written
+
+
+def _probe_equal(got, want):
+    assert torch.equal(got.out, want.out)
+    for k in want.chain:
+        assert torch.equal(got.chain[k], want.chain[k]), k
+    assert got.cycles.item() > 0
+
+
+def test_reduce_probe_matches_plain(dev):
+    from idkengine_tpu_torch.tools import bench_reduce as br
+
+    x = br.make_inputs(dev, seed=11)
+    for mode in br.MODES:
+        before = br.reduce_loop.launches
+        got = br.reduce_loop(x, mode, 3 * PROBE_STEPS)
+        torch.cuda.synchronize()
+        assert br.reduce_loop.launches == before + 1
+        _probe_equal(got, br.reduce_loop_plain(x, mode, 3 * PROBE_STEPS))
+
+
+def test_dual_probe_matches_plain(dev):
+    from idkengine_tpu_torch.tools import bench_dual as bd
+
+    x = bd.make_inputs(dev, seed=12)
+    for kind in bd.KINDS:
+        _probe_equal(bd.dual_loop(x, kind, PROBE_STEPS), bd.dual_loop_plain(x, kind, PROBE_STEPS))
+
+
+@pytest.mark.parametrize("k", [16, 37])  # 37: b's row load spans two warp-wide chunks
+def test_prims_probe_matches_plain(dev, k):
+    from idkengine_tpu_torch.tools import bench_prims as bp
+
+    tab, x = bp.make_inputs(dev, seed=13)
+    for body in bp.BODIES:
+        loop = (bp.prims_extra_loop if body == bp.EXTRA
+                else lambda *a, body=body: bp.prims_loop(a[0], a[1], body, *a[2:]))
+        _probe_equal(loop(tab, x, k, PROBE_STEPS),
+                     bp.prims_loop_plain(tab, x, body, k, PROBE_STEPS))
+
+
+@pytest.mark.parametrize("rows", [1, 8, 32])
+def test_slab_probe_matches_plain(dev, rows):
+    from idkengine_tpu_torch.tools import bench_slab as bs
+
+    args = bs.make_inputs(dev, rows, seed=14)
+    for mode in bs.MODES:
+        for reduce in bs.REDUCES:
+            _probe_equal(bs.slab_loop(*args, mode, reduce, PROBE_STEPS),
+                         bs.slab_loop_plain(*args, mode, reduce, PROBE_STEPS))
+
+
+def test_mxu_leaf_probe_matches_plain(dev):
+    """Leaf and feature tables larger than one staged chunk (20 visits of
+    20 triangles: two leaf rows a visit)."""
+    from idkengine_tpu_torch.tools import bench_mxu_leaf as bm
+
+    for kind, v in bm.variants(dev, 1024, 20, 20).items():
+        got, want = v.kernel(), v.plain()
+        same = got.chain["slot"] == want.chain["slot"]
+        assert same.float().mean().item() >= SLOT_AGREE, kind
+        torch.testing.assert_close(got.chain["t"][same], want.chain["t"][same], **bm.T_TOL[kind])
+        assert (got.chain["slot"] >= 0).float().mean().item() > 0.05, kind
+
+
+def test_probes_refuse_bad_inputs(dev):
+    from idkengine_tpu_torch.tools import bench_reduce as br
+    from idkengine_tpu_torch.tools import bench_slab as bs
+
+    x = br.make_inputs(dev)
+    with pytest.raises(TypeError):
+        br.reduce_loop(x.double(), "sum4")
+    with pytest.raises(ValueError):
+        br.reduce_loop(x[:4], "sum4")
+    with pytest.raises(ValueError):
+        br.reduce_loop(torch.empty((128, 8), device=dev).t(), "sum4")
+    args = bs.make_inputs(dev, 8)
+    with pytest.raises(ValueError):
+        bs.slab_loop(args[0].cpu(), *args[1:], "f32", "sum4")
+    # a launch the library refuses (an unknown mode) raises
+    out = torch.empty((8, 128), dtype=torch.int32, device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    with pytest.raises(RuntimeError):
+        br._LIB("idk_bench_reduce", [x, out, torch.empty_like(x), cycles], [7, 10])

@@ -14,6 +14,10 @@ from idkengine_tpu_torch.ops import packet_trace, two_phase, voxel_scatter
 from idkengine_tpu_torch.render import DeferredPipeline, PathTracer, PathTracerPipeline
 from idkengine_tpu_torch.render.vxgi import VoxelGrid
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase
+from idkengine_tpu_torch.tools import (_probe, bench_dual, bench_mxu_leaf, bench_prims,
+                                       bench_reduce, bench_slab)
+
+PROBES = (bench_slab, bench_mxu_leaf, bench_reduce, bench_dual, bench_prims)
 
 PKG = os.path.dirname(idkengine_tpu_torch.__file__)
 REPO = os.path.dirname(PKG)
@@ -27,6 +31,9 @@ def test_import_leaves_jax_out():
             "import idkengine_tpu_torch.ops.voxel_scatter, idkengine_tpu_torch.bvh.builder\n"
             "import idkengine_tpu_torch.ops.two_phase, idkengine_tpu_torch.render.debug_view\n"
             "import idkengine_tpu_torch.render.denoise\n"
+            "import idkengine_tpu_torch.tools.bench_slab, idkengine_tpu_torch.tools.bench_mxu_leaf\n"
+            "import idkengine_tpu_torch.tools.bench_reduce, idkengine_tpu_torch.tools.bench_dual\n"
+            "import idkengine_tpu_torch.tools.bench_prims\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'idkengine_tpu')]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": REPO}
@@ -48,7 +55,7 @@ def test_no_module_imports_jax():
 def test_compiled_sources_lie_inside_the_port():
     sources = [builder.BVH_SOURCE, packet_trace.TRACE_SOURCE, packet_trace.TRACE_HEADER,
                two_phase.TWO_PHASE_SOURCE, voxel_scatter.VOXEL_SCATTER_SOURCE,
-               *glob.glob(os.path.join(PKG, "csrc", "*"))]
+               _probe.HEADER, *(m.SOURCE for m in PROBES), *glob.glob(os.path.join(PKG, "csrc", "*"))]
     pkg = os.path.realpath(PKG) + os.sep
     for src in sources:
         assert os.path.isfile(src), src
@@ -56,7 +63,10 @@ def test_compiled_sources_lie_inside_the_port():
     # every kernel source in csrc/ is one that a wrapper builds or includes
     assert sorted(glob.glob(os.path.join(PKG, "csrc", "*"))) == sorted(
         [packet_trace.TRACE_SOURCE, packet_trace.TRACE_HEADER, two_phase.TWO_PHASE_SOURCE,
-         voxel_scatter.VOXEL_SCATTER_SOURCE])
+         voxel_scatter.VOXEL_SCATTER_SOURCE, _probe.HEADER, *(m.SOURCE for m in PROBES)])
+    # the five probe sources, one per tool
+    assert sorted(os.path.basename(m.SOURCE) for m in PROBES) == [
+        "bench_dual.cu", "bench_mxu_leaf.cu", "bench_prims.cu", "bench_reduce.cu", "bench_slab.cu"]
 
 
 def test_entry_points_default_to_the_card():
@@ -64,3 +74,5 @@ def test_entry_points_default_to_the_card():
                      (DeferredPipeline.__init__, "device"), (VoxelGrid.__init__, "device"),
                      (PathTracerPipeline.__init__, "device")):
         assert inspect.signature(fn).parameters[name].default == "cuda", fn
+    for probe in PROBES:
+        assert inspect.signature(probe.main).parameters["device"].default == "cuda", probe
