@@ -10,10 +10,13 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      from the repository's sources into build/, the nine compilers started
      together;
   3. build the 2.8M-triangle atrium with the benchmark's build settings,
-     lights and camera (SceneDatabase.build on the card);
-  4. trace the main path's ray batches (1920x1080 primary rays; shadow rays
-     from their hit points) with each kernel and with its plain PyTorch
-     version, compare and time both;
+     lights and camera (SceneDatabase.build on the card); the trace
+     kernel's 4-wide table: size, depth, build time, stack;
+  4. trace the path-traced frame's ray batches (1920x1080 primary rays;
+     shadow rays from their hit points; the frame's first bounce batch)
+     with each kernel and with its plain PyTorch version, compare and time
+     both; each batch's bound and binary-tree steps per ray (mean, p99,
+     max; rays from the sky pixels' far points apart);
   5. path-traced frame: render through PathTracer at 1920x1080, depth 2, ray
      sorting on, Russian roulette off: one warm-up frame, then timed frames
      with the kernels' launch counts reset just before; check the image, and
@@ -27,7 +30,8 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      frame, then timed frames with every launch count reset just before;
      check the image; hold each trace kernel against its plain version on
      the rays of one more frame (G-buffer primaries, the voxelizer's and
-     the lighting's shadow rays); profile one frame (device time of each
+     the lighting's shadow rays), with each call's time, bound and steps
+     per ray; profile one frame (device time of each
      pass, kernel launches, device busy share); check a small deferred
      render on the card against the CPU's;
   8. two-phase traversal on the main path's ray batches (phase 4's
@@ -99,6 +103,7 @@ KERNELS_WHERE = {  # route, source and the Pallas kernels each wrapper's kernel 
                     "replaces": "idkengine_tpu/ops/two_phase.py:400"},
 }
 SMALL_RMSE = 1e-3  # card vs CPU render of a small atrium (golden contract)
+FAR_ORIGIN = 1e6  # the G-buffer puts sky pixels at o + d * 1e8 (render/gbuffer.py)
 VXGI_RES = 256  # bench.py:255's record and the reference's default
 DEFERRED_FRAMES = 4
 HAND_KERNELS = ("trace_kernel", "trace_steps_kernel", "scatter_max_kernel",  # __global__
@@ -160,6 +165,9 @@ def phase_build():
     for line in ptxas.splitlines():
         if any(k in line for k in ("entry function", "registers", "spill")) or "error" in line.lower():
             log(f"#   {line.strip()}")
+    log(f"#   trace_kernel: {packet_trace._load().idk_trace_shared_bytes()} bytes of dynamic shared "
+        f"memory a 128-thread block (its stack's ring), beside the registers and the local "
+        f"stack frame above")
 
 
 def phase_scene(dev):
@@ -186,6 +194,15 @@ def phase_scene(dev):
     log(f"# scene: atrium {m.n_triangles} tris, {m.n_nodes} nodes, depth {m.max_depth}, "
         f"SAH {m.sah_cost:.1f}; model {t1 - t0:.1f} s, build {t2 - t1:.1f} s "
         f"(BLAS {m.build_ms / 1e3:.1f} s)")
+    from idkengine_tpu_torch.ops.packet_trace import WIDE_STACK_LIMIT, wide_stack_entries
+
+    w, entries = scene.bvh4_nodes, wide_stack_entries(scene)
+    log(f"# trace kernel's tables: 4-wide nodes {w.shape[0]} records, {w.numel() * 4 / 1e6:.1f} MB "
+        f"(binary {scene.bvh_nodes.numel() * 4 / 1e6:.1f} MB), depth {scene.bvh4_depth} "
+        f"(binary {scene.bvh_depth}), {w[:, 28].float().mean().item():.2f} children a record, "
+        f"built in {scene.bvh4_build_ms:.1f} ms ({scene.bvh4_build_ms / m.build_ms * 100:.1f}% "
+        f"of the BLAS build); leaf table tri_vec {scene.tri_vec.numel() * 4 / 1e6:.1f} MB; "
+        f"stack {entries} entries a ray (the kernel holds {WIDE_STACK_LIMIT})")
     return db, scene, cam
 
 
@@ -248,10 +265,33 @@ def compare_trace(kind, scene, o, d, t_max, reps=10):
                      bound_by="bytes", library_ms=None), agree
 
 
-def phase_compare(scene, cam, dev):
-    """Each kernel vs its plain version on the path tracer's ray batches."""
+def steps_stats(scene, o, d, t_max):
+    """Mean, 99th percentile and largest over the batch of each ray's steps in the
+    binary tree (the stackless walk's count, trace_closest_steps on the
+    card; a dead ray counts one): the work that the layout does not change."""
+    from idkengine_tpu_torch.ops import packet_trace as kern
+
+    _, steps = kern.trace_closest_steps(scene, o, d, t_max)
+    sf = steps.float()
+    stats = dict(steps_mean=sf.mean().item(), steps_p99=sf.quantile(0.99).item(),
+                 steps_max=int(steps.max().item()))
+    far = o.abs().amax(dim=1) > FAR_ORIGIN
+    if far.any():  # rays from the sky pixels' far points apart from the rest
+        stats.update(far_share=far.float().mean().item(), far_steps_mean=sf[far].mean().item(),
+                     far_steps_max=int(steps[far].max().item()),
+                     near_steps_mean=sf[~far].mean().item() if (~far).any() else 0.0)
+    return stats
+
+
+def main_path_batches(cam, pt, dev):
+    """The path-traced frame's ray batches at full width: 1920x1080 primary
+    rays (closest), shadow-like rays from their hits (any-hit: random
+    directions up to 5 units; primary misses become dead rays, as NEE makes
+    them) and the frame's first bounce batch (closest, sorted, as the frame
+    traces it). Each is (kind, o, d, t_max)."""
     import torch
 
+    from idkengine_tpu_torch.ops import packet_trace as kern
     from idkengine_tpu_torch.render.camera import generate_rays
     from idkengine_tpu_torch.utils import rng
 
@@ -261,29 +301,42 @@ def phase_compare(scene, cam, dev):
     state, u_lens = rng.uniform2(state)
     o, d = generate_rays(cam.ray_params(WIDTH, HEIGHT), WIDTH, HEIGHT, u_pix, u_lens)
     t_max = torch.full((r,), 3.4e38, device=dev)
-    results = {}
-
-    got, m, agree = compare_trace("trace_closest", scene, o, d, t_max)
-    results["trace_closest"] = m
-    log(f"# trace_closest, {r} primary rays: kernel {m['ms']:.3f} ms "
-        f"(bound {m['bound_ms']:.3f} ms), plain {m['plain_ms']:.1f} ms; "
-        f"hits {(got.slot >= 0).float().mean().item():.4f}, slot agreement {agree:.6f}, "
-        f"max |dt| {m['max_abs_err']:g}")
-
-    # shadow-like rays: from the primary hits, in random directions, up to 5
-    # units; primary misses become dead rays, as NEE makes them
+    hit = kern.trace_closest(pt.scene, o, d, t_max)
     g = torch.Generator(device=dev).manual_seed(0)
     sd = torch.randn((r, 3), generator=g, device=dev)
     sd = (sd / torch.linalg.vector_norm(sd, dim=-1, keepdim=True)).contiguous()
-    hp = o + d * torch.where(got.slot >= 0, got.t, 0.0)[:, None]
+    hp = o + d * torch.where(hit.slot >= 0, hit.t, 0.0)[:, None]
     so = (hp - d * 1e-3).contiguous()
-    s_tmax = torch.where(got.slot >= 0, 5.0, -1.0)
-    occ, m, agree = compare_trace("trace_any", scene, so, sd, s_tmax)
-    results["trace_any"] = m
-    log(f"# trace_any, {r} shadow rays: kernel {m['ms']:.3f} ms "
-        f"(bound {m['bound_ms']:.3f} ms), plain {m['plain_ms']:.1f} ms; "
-        f"occluded {occ.float().mean().item():.4f}, agreement {agree:.6f}")
-    batches = {"primary": ("trace_closest", o, d, t_max), "shadow": ("trace_any", so, sd, s_tmax)}
+    s_tmax = torch.where(hit.slot >= 0, 5.0, -1.0)
+    return {"primary": ("trace_closest", o, d, t_max), "shadow": ("trace_any", so, sd, s_tmax),
+            "bounce": ("trace_closest", *capture_bounce_batch(pt, cam))}
+
+
+def log_batch(kind, label, o, m, agree, extra=""):
+    if "far_share" in m:
+        extra += (f"; rays from beyond {FAR_ORIGIN:g} (sky pixels) {m['far_share']:.4f}, their "
+                  f"steps mean {m['far_steps_mean']:.2f} max {m['far_steps_max']}, the others' "
+                  f"mean {m['near_steps_mean']:.2f}")
+    log(f"# {kind}, {label} ({o.shape[0]} rays): kernel {m['ms']:.4f} ms, bound "
+        f"{m['bound_ms']:.4f} ms, plain {m['plain_ms']:.1f} ms; binary-tree steps per ray mean "
+        f"{m['steps_mean']:.2f} p99 {m['steps_p99']:.0f} max {m['steps_max']}; agreement "
+        f"{agree:.6f}, max |diff| {m['max_abs_err']:g}{extra}")
+
+
+def phase_compare(scene, cam, pt, dev, card):
+    """Each trace kernel against its plain version on the path-traced
+    frame's batches; times, bounds and steps per ray."""
+    batches = main_path_batches(cam, pt, dev)
+    results = {}
+    for label, (kind, o, d, t_max) in batches.items():
+        got, m, agree = compare_trace(kind, scene, o, d, t_max)
+        m.update(steps_stats(scene, o, d, t_max))
+        share = ((got.slot >= 0) if kind == "trace_closest" else got).float().mean().item()
+        log_batch(kind, f"{label} batch", o, m, agree,
+                  f"; {'hits' if kind == 'trace_closest' else 'occluded'} {share:.4f}; on {card}")
+        entry = results.setdefault(kind, dict(m, batches=[]))  # the first batch stands for it
+        entry["max_abs_err"] = max(entry["max_abs_err"], m["max_abs_err"])
+        entry["batches"].append(dict(batch=label, rays=o.shape[0], agreement=agree, **m))
     return results, batches
 
 
@@ -306,11 +359,9 @@ def read_launch_counts():
             "two_phase_b": two_phase.phase_b_closest.launches + two_phase.phase_b_any.launches}
 
 
-def phase_frame(db, scene, cam, dev, card):
-    import torch
-
+def make_tracer(db, scene, cam, dev):
+    """The path tracer of the main path, after one warm-up frame."""
     from idkengine_tpu_torch.render import PathTracer, PathTracerSettings
-    from idkengine_tpu_torch.render.tonemap import tonemap
 
     settings = PathTracerSettings(ray_depth=DEPTH, russian_roulette=False,
                                   do_ray_sorting=True, sky_strength=1.0)
@@ -320,6 +371,13 @@ def phase_frame(db, scene, cam, dev, card):
     pt.render_frame(cam)  # warm-up
     torch_sync(dev)
     log(f"# tracer init + warm-up frame {time.perf_counter() - t0:.2f} s")
+    return pt
+
+
+def phase_frame(pt, cam, dev, card):
+    import torch
+
+    from idkengine_tpu_torch.render.tonemap import tonemap
 
     reset_all_launch_counts()
     rays = 0.0
@@ -346,7 +404,7 @@ def phase_frame(db, scene, cam, dev, card):
         raise AssertionError("tonemapped image leaves [0,1]")
     log(f"# image: mean {img.mean().item():.5f}, std {img.std().item():.5f}, "
         f"tonemapped mean {out.mean().item():.5f}")
-    return launches, pt
+    return launches
 
 
 def phase_small_reference(dev):
@@ -478,12 +536,11 @@ def phase_deferred_frame(pipe, cam, dev, card):
     return launches
 
 
-def phase_compare_deferred_traces(pipe, cam, results):
-    """Each trace kernel against its plain version on the rays of one
-    deferred frame, in the order the frame traces them: the voxelizer's
-    shadow rays, the G-buffer's primaries, the lighting's shadow rays
-    toward the lights. The frame's calls are recorded by standing in for
-    the pipeline's trace functions for that one frame."""
+def record_deferred_traces(pipe, cam):
+    """The trace calls (kind, scene, o, d, t_max) of one deferred frame, in
+    the order the frame makes them: the voxelizer's shadow rays, the
+    G-buffer's primaries, the lighting's shadow rays toward the lights;
+    recorded by standing in for the pipeline's trace functions."""
     from idkengine_tpu_torch.render import pipeline as pipeline_mod
 
     calls = []
@@ -503,16 +560,22 @@ def phase_compare_deferred_traces(pipe, cam, results):
         pipe.render_frame(cam)
     finally:
         pipeline_mod.trace_closest, pipeline_mod.trace_any = saved
-    for kind, scene, o, d, t_max in calls:
+    return calls
+
+
+def phase_compare_deferred_traces(pipe, cam, results, card):
+    """Each trace kernel against its plain version on the rays of one
+    deferred frame (record_deferred_traces); times, bounds, steps per ray."""
+    calls = record_deferred_traces(pipe, cam)
+    for n, (kind, scene, o, d, t_max) in enumerate(calls):
         _, m, agree = compare_trace(kind, scene, o, d, t_max, reps=5)
-        log(f"# deferred frame's {kind}, {o.shape[0]} rays: kernel {m['ms']:.3f} ms "
-            f"(bound {m['bound_ms']:.3f} ms), plain {m['plain_ms']:.1f} ms; "
-            f"agreement {agree:.6f}, max |diff| {m['max_abs_err']:g}")
+        m.update(steps_stats(scene, o, d, t_max))
+        log_batch(kind, f"deferred frame's call {n}", o, m, agree, f"; on {card}")
         entry = results[kind]
         entry["max_abs_err"] = max(entry["max_abs_err"], m["max_abs_err"])
-        entry.setdefault("deferred_frame_calls", []).append(
-            dict(rays=o.shape[0], agreement=agree, max_abs_err=m["max_abs_err"], ms=m["ms"],
-                 plain_ms=m["plain_ms"], bound_ms=m["bound_ms"]))
+        call = dict(rays=o.shape[0], agreement=agree, **m)
+        entry.setdefault("deferred_frame_calls", []).append(call)
+        entry["batches"].append(dict(batch=f"deferred call {n}", **call))
     for kind in ("trace_closest", "trace_any"):
         if kind not in {c[0] for c in calls}:
             raise AssertionError(f"the deferred frame made no {kind} call")
@@ -702,14 +765,13 @@ def compare_phase_b(kind, scene, lists, o, d, t_max):
     return got, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=None), tests
 
 
-def phase_two_phase(scene, pt, cam, batches):
+def phase_two_phase(scene, batches):
     """Phase 8: the two-phase traversal on the main path's ray batches."""
     import torch
 
     from idkengine_tpu_torch.ops import packet_trace as kern
     from idkengine_tpu_torch.ops import two_phase as tp
 
-    batches = dict(batches, bounce=("trace_closest", *capture_bounce_batch(pt, cam)))
     entries = {"two_phase_a": None, "two_phase_b": None}
     for name, (kind, o, d, t_max) in batches.items():
         closest = kind == "trace_closest"
@@ -1057,9 +1119,10 @@ def main():
     card = phase_card()
     phase_build()
     db, scene, cam = phase_scene(dev)
-    timings, batches = phase_compare(scene, cam, dev)
-    launches = {}
-    launches["pathtracer"], pt = phase_frame(db, scene, cam, dev, card)
+    pt = make_tracer(db, scene, cam, dev)
+    timings, batches = phase_compare(scene, cam, pt, dev, card)
+    launches = {"pathtracer": phase_frame(pt, cam, dev, card)}
+    del pt
     phase_small_reference(dev)
 
     from idkengine_tpu_torch.render import DeferredPipeline
@@ -1067,7 +1130,7 @@ def main():
     pipe = DeferredPipeline(db, WIDTH, HEIGHT, _deferred_settings(VXGI_RES), device=dev)
     timings["scatter_max_dense"] = phase_compare_scatter(db, scene, pipe, dev)
     launches["deferred"] = phase_deferred_frame(pipe, cam, dev, card)
-    phase_compare_deferred_traces(pipe, cam, timings)
+    phase_compare_deferred_traces(pipe, cam, timings, card)
     profile_frame(lambda: pipe.render_frame(cam), "deferred frame",
                   lambda key: key.startswith("deferred/"))
     phase_small_deferred(dev)
@@ -1075,8 +1138,8 @@ def main():
     torch.cuda.empty_cache()
     log(f"# phases 1-7 took {time.perf_counter() - t_start:.1f} s")
 
-    timings.update(phase_two_phase(scene, pt, cam, batches))
-    del pt, batches
+    timings.update(phase_two_phase(scene, batches))
+    del batches
     launches.update(phase_pipeline(db, cam, dev, card))
     phase_denoise_record(db, scene, cam, dev)
     timings["trace_closest_steps"], launches["debug_view"] = phase_debug_view(

@@ -76,6 +76,9 @@ def _load():
     lib.blas_destroy.argtypes = [ctypes.c_void_p]
     lib.bvh_thread_links.restype = None
     lib.bvh_thread_links.argtypes = [ctypes.c_void_p, ctypes.c_uint32, i64p, i64p]
+    lib.bvh_collapse4.restype = ctypes.c_int64
+    lib.bvh_collapse4.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_uint32] * 2 + [
+        ctypes.c_void_p, i64p, ctypes.POINTER(ctypes.c_int32)]
     _lib = lib
     return lib
 
@@ -101,6 +104,27 @@ def tree_thread_links(nodes: np.ndarray):
     send = np.empty(n, np.int64)
     lib.bvh_thread_links(nodes.ctypes.data, np.uint32(n), _i64p(order), _i64p(send))
     return order, send
+
+
+def tree_collapse4(node_min, node_max, node_first, node_count, miss_link,
+                   leaf_bits: int) -> tuple[np.ndarray, int, np.ndarray]:
+    """(records (M,32) int32, depth, (M,4) int64 binary node of each child)
+    of the 4-wide collapse, or ValueError where a leaf reference does not
+    fit 31 bits — see flatten.bvh4_nodes."""
+    lib = _load()
+    arrays = [*(np.ascontiguousarray(x, np.float32) for x in (node_min, node_max)),
+              *(np.ascontiguousarray(x, np.int32) for x in (node_first, node_count, miss_link))]
+    n = arrays[0].shape[0]
+    cap = int((arrays[3] == 0).sum()) + 1
+    rec = np.empty((cap, 32), np.int32)
+    src = np.empty((cap, 4), np.int64)
+    depth = ctypes.c_int32()
+    m = lib.bvh_collapse4(*(a.ctypes.data for a in arrays), np.uint32(n), np.uint32(leaf_bits),
+                          rec.ctypes.data, _i64p(src), ctypes.byref(depth))
+    if m < 0:
+        raise ValueError(f"a leaf reference does not fit the wide layout: leaves hold at most "
+                         f"{1 << leaf_bits} triangles and slots end below {1 << (31 - leaf_bits)}")
+    return rec[:m], int(depth.value), src[:m]
 
 
 @dataclass

@@ -1509,4 +1509,74 @@ int64_t bvh_collapse_wide(const BlasNode* nodes, uint32_t n, int64_t* kids,
   return W;
 }
 
+// 4-wide collapse of a threaded binary tree (DFS order: interior node i
+// has its left child at i + 1 and its right child at miss_link[i + 1]), the
+// CUDA trace kernel's node table (see idkengine_tpu_torch/bvh/flatten.py
+// bvh4_nodes for the record layout). Records follow in breadth-first order,
+// record 0 for the root; each opens its binary node's subtree by replacing
+// the open interior child of largest surface area (the first of equal ones)
+// with its two children until four are open or all are leaves. rec (32
+// int32 words a record) and src (the binary node of each child, -1 where
+// empty) must hold one record per interior node of the n, plus one.
+// Returns the record count and sets *depth (records on the longest path),
+// or returns -1 when a leaf reference ~(first << leaf_bits | count - 1)
+// does not fit 31 bits.
+int64_t bvh_collapse4(const float* node_min, const float* node_max,
+                      const int32_t* node_first, const int32_t* node_count,
+                      const int32_t* miss_link, uint32_t n, uint32_t leaf_bits,
+                      int32_t* rec, int64_t* src, int32_t* depth) {
+  auto area = [&](int64_t i) {
+    const float ex = node_max[3 * i] - node_min[3 * i];
+    const float ey = node_max[3 * i + 1] - node_min[3 * i + 1];
+    const float ez = node_max[3 * i + 2] - node_min[3 * i + 2];
+    return ex * ey + ey * ez + ez * ex;
+  };
+  const int64_t max_count = int64_t(1) << leaf_bits;
+  const int64_t max_slot = int64_t(1) << (31 - leaf_bits);
+  std::vector<int64_t> roots{0};
+  std::vector<int32_t> level{0};
+  int32_t deepest = 0;
+  for (size_t r = 0; r < roots.size(); ++r) {
+    int64_t s[4] = {roots[r], -1, -1, -1};
+    int open = 1;
+    for (int step = 0; step < 3; ++step) {
+      int best = -1;
+      float best_area = 0.0f;
+      for (int k = 0; k < open; ++k) {
+        if (node_count[s[k]] != 0) continue;
+        const float a = area(s[k]);
+        if (best < 0 || a > best_area) best = k, best_area = a;
+      }
+      if (best < 0) break;
+      const int64_t node = s[best];
+      s[best] = node + 1;
+      s[open++] = miss_link[node + 1];
+    }
+    int32_t* w = rec + 32 * r;
+    std::fill(w, w + 32, 0);
+    for (int k = 0; k < open; ++k) {
+      const int64_t c = s[k];
+      src[4 * r + k] = c;
+      for (int axis = 0; axis < 3; ++axis) {
+        std::memcpy(w + 8 * axis + k, node_min + 3 * c + axis, 4);
+        std::memcpy(w + 8 * axis + 4 + k, node_max + 3 * c + axis, 4);
+      }
+      if (node_count[c] == 0) {
+        w[24 + k] = (int32_t)roots.size();
+        roots.push_back(c);
+        level.push_back(level[r] + 1);
+        deepest = std::max(deepest, level[r] + 1);
+      } else {
+        const int64_t first = node_first[c], count = node_count[c];
+        if (count > max_count || first + count > max_slot) return -1;
+        w[24 + k] = (int32_t)~((first << leaf_bits) | (count - 1));
+      }
+    }
+    for (int k = open; k < 4; ++k) src[4 * r + k] = -1;
+    w[28] = open;
+  }
+  *depth = deepest + 1;
+  return (int64_t)roots.size();
+}
+
 }  // extern "C"

@@ -2,9 +2,11 @@
 Counterpart: idkengine_tpu/bvh/flatten.py.
 
 `thread_bvh` and `flatten_triangles` are the JAX package's numpy functions,
-carried over. `bvh2_nodes` adds the CUDA kernel's node layout, derived from
-the threaded arrays alone so that any threaded scene (the port's own build
-or one handed over from the JAX package) can be traced on the card.
+carried over. `bvh2_nodes` (the binary layout of the two-phase and steps
+kernels) and `bvh4_nodes` (the 4-wide layout of the trace kernel) add the
+CUDA kernels' node tables, derived from the threaded arrays alone so that
+any threaded scene (the port's own build or one handed over from the JAX
+package) can be traced on the card.
 """
 from __future__ import annotations
 
@@ -140,3 +142,34 @@ def bvh2_nodes(node_min: np.ndarray, node_max: np.ndarray,
         inner = level[interior[level]]
         level = np.concatenate([inner + 1, right_or_first[inner].astype(np.int64)])
     return rec, depth
+
+
+LEAF_COUNT_BITS = 5  # a bvh4_nodes leaf reference packs (first, count - 1) in 31 bits
+
+
+def bvh4_nodes(node_min: np.ndarray, node_max: np.ndarray, node_first: np.ndarray,
+               node_count: np.ndarray, miss_link: np.ndarray
+               ) -> tuple[np.ndarray, int, np.ndarray]:
+    """The CUDA trace kernel's 4-wide node layout, collapsed from the binary
+    tree of the threaded arrays (in the port's C++ core, bvh_collapse4).
+
+    Each record stands for one binary node (the root, or an interior node
+    another record points to) and opens its subtree the usual way: starting
+    from that node, the open interior child of largest surface area is
+    replaced by its two children until four are open or all are leaves.
+    Records are 128 bytes, 32 int32 words, in breadth-first order (root 0):
+        words  0-23  children's boxes as six float4s: lo.x[4] hi.x[4]
+                     lo.y[4] hi.y[4] lo.z[4] hi.z[4], the binary nodes' f32
+                     values bit for bit
+        words 24-27  children's references: an interior child's record
+                     index (>= 0), or a leaf's ~(first << 5 | count - 1)
+                     (< 0), [first, first + count) in the SceneArrays slot
+                     space
+        word  28     the child count n (1-4): slots n..3 are empty (zero
+                     words, never tested)
+        words 29-31  zero
+    Returns ((M,32) int32 records; depth in records, the root counted as 1;
+    (M,4) int64 binary node of each child, -1 where empty). Raises
+    ValueError for leaves above 32 triangles or 2^26 slots and more."""
+    return _builder.tree_collapse4(node_min, node_max, node_first, node_count, miss_link,
+                                   LEAF_COUNT_BITS)

@@ -1,5 +1,5 @@
-// Closest-hit and any-hit BVH traversal for Hopper (sm_90a), one ray per
-// thread.
+// Closest-hit and any-hit BVH traversal for Hopper (sm_90a) over a 4-wide
+// node table, one ray per thread.
 //
 // Replaces the TPU packet tracer's Pallas kernels:
 //   K1 idkengine_tpu/ops/packet_trace.py `_make_kernel` (whole-table scenes,
@@ -11,26 +11,50 @@
 //      chosen when IDK_STEER_LOOP=0).
 // K2's and K4's segmentation exists only because a TPU segment must fit the
 // ~16 MB scoped VMEM. Here the whole scene lies in device memory and one
-// traversal computes every contract: Hit(t, slot, u, v) for the closest hit,
-// and occlusion before t_max for the any-hit query.
+// traversal computes every contract: Hit(t, slot, u, v) for the closest hit
+// (slot -1 and t = t_max on a miss), and occlusion before t_max for the
+// any-hit query; t_max < 0 marks a dead ray.
 //
 // What bounds it: not bandwidth or arithmetic but the latency of dependent
-// node fetches, and divergence between the rays of a warp. Each step reads
-// a node record, then (at an interior) two child records, before it knows
-// where to go next. At 2.8M triangles the node and triangle tables are a few
-// hundred MB; the top of the tree stays in the 50 MB L2. What this first
-// design does about it: near-first child order (by entry distance) so the
-// closest-hit bound tightens early and far subtrees are culled when popped;
-// 32-byte node records read as two float4 loads through the read-only path.
-// Packet or warp-cooperative traversal, a wider tree and wavefront
-// compaction are later work.
+// node fetches, and divergence between the rays of a warp. A binary tree of
+// the 2.8M atrium is 24 levels deep, and each level costs a round trip to
+// L2 before the ray knows where to go next. What this design does about it
+// (each part kept because it measured faster on the card, PERF.md):
+// - a 4-wide tree (bvh/flatten.py:bvh4_nodes) of about half the depth, whose
+//   128-byte record holds the four children's boxes: one line fetch (eight
+//   16-byte loads) serves four slab tests;
+// - the hit children are ordered by entry distance with a five-exchange
+//   sorting network on the distance's bits; the ray descends into the
+//   nearest and pushes the others, far first; the closest query culls a
+//   popped entry beyond its best hit, the any-hit query stops at its first
+//   occluder;
+// - the stack of (reference, entry distance) keeps each ray's newest
+//   TRACE_RING entries in shared memory, a ring with one column per thread
+//   (entry k of thread j at (k mod TRACE_RING) * TRACE_BLOCK + j, so a warp
+//   touches 32 consecutive 8-byte words whatever each lane's depth), and
+//   spills older entries to a local array. A whole stack in shared memory
+//   (3 entries per record level, 43 KB a block at the atrium's depth 14)
+//   left 5 blocks an SM and was slower than the binary kernel; a stack
+//   wholly in local memory was slower on the primaries and bounces;
+// - a leaf's triangles are read as three float4 loads a slot from tri_vec
+//   (p0 | e1 | e2 | pad), not nine scalar loads from three arrays;
+// - persistent warps (Aila and Laine, "Understanding the Efficiency of Ray
+//   Traversal on GPUs", HPG 2009): as many blocks as the card holds at
+//   once, each warp taking its next 32 rays from a global counter once all
+//   its lanes are done, so that no warp waits on a block's slowest one
+//   (taking 64 or more at once was slower: the warps' tails grow).
+// The stack holds 3 entries per record level (a record pushes at most 3 of
+// its children); the wrapper refuses a tree deeper than
+// (TRACE_RING + TRACE_SPILL) / 3 records.
 //
-// Layout and arithmetic: trace_math.cuh (the binary node records of
-// bvh/flatten.py:bvh2_nodes; the plain version's operation order, built
-// with -fmad=false so that t, u and v are bit-equal with it).
-//
-// The stack holds the pending far children: at most depth-1 entries. The
-// wrapper refuses a tree deeper than TRACE_STACK_SIZE + 1.
+// Layout and arithmetic: trace_math.cuh. The slab test is slab_box and the
+// Möller–Trumbore test triangle_values, triangle()'s operation order and
+// the plain version's, built with -fmad=false, so that t, u and v are
+// bit-equal with it wherever both pick the same triangle; the wide records
+// copy the binary nodes' f32 boxes bit for bit, so every slab test is the
+// plain version's on that box. An empty child slot is never tested: the
+// record's child count masks it (a sentinel box would pass CUDA's fminf,
+// see trace_math.cuh).
 //
 // A third entry point, idk_trace_closest_steps, replaces K1 with
 // `debug_iters=True` (packet_trace.py:979, called from
@@ -48,18 +72,60 @@
 
 #include "trace_math.cuh"
 
+#define WIDE_LEAF_COUNT_BITS 5  // bvh/flatten.py:LEAF_COUNT_BITS
+#define TRACE_RING 16  // stack entries a ray keeps in shared memory (a power of 2)
+#define TRACE_SPILL 80  // older entries, in local memory
+
 namespace {
 
+constexpr int kMissKey = 0x7fffffff;  // above the bits of any entry distance (>= 0)
+
+// Entry distance of a child as a sort key: its f32 bits (ordered as the
+// floats, since the distance is clamped to >= 0), or kMissKey.
+__device__ __forceinline__ int child_key(float lox, float loy, float loz, float hix,
+                                         float hiy, float hiz, bool valid, const Ray& r,
+                                         float t_best) {
+  float tn;
+  const bool hit = slab_box(lox, loy, loz, hix, hiy, hiz, r, t_best, tn);
+  return (valid && hit) ? __float_as_int(tn) : kMissKey;
+}
+
+__device__ __forceinline__ void order(int& ka, int& ca, int& kb, int& cb) {
+  const bool swap = kb < ka;
+  const int k = swap ? kb : ka, c = swap ? cb : ca;
+  kb = swap ? ka : kb;
+  cb = swap ? ca : cb;
+  ka = k;
+  ca = c;
+}
+
+// A ray's stack: entry k lives in ring[(k mod TRACE_RING) * TRACE_BLOCK]
+// (this thread's column of the block's shared ring) while it is among the
+// newest TRACE_RING, and in spill[k - TRACE_RING] before that.
+__device__ __forceinline__ void push(int2* ring, int2 (&spill)[TRACE_SPILL], int& sp,
+                                     int2 e) {
+  if (sp >= TRACE_RING)  // the ring's oldest entry moves out
+    spill[sp - TRACE_RING] = ring[TRACE_BLOCK * (sp & (TRACE_RING - 1))];
+  ring[TRACE_BLOCK * (sp & (TRACE_RING - 1))] = e;
+  ++sp;
+}
+
+__device__ __forceinline__ int2 pop(int2* ring, int2 (&spill)[TRACE_SPILL], int& sp) {
+  --sp;
+  const int2 e = ring[TRACE_BLOCK * (sp & (TRACE_RING - 1))];
+  if (sp >= TRACE_RING)  // the entry below the ring moves back in
+    ring[TRACE_BLOCK * (sp & (TRACE_RING - 1))] = spill[sp - TRACE_RING];
+  return e;
+}
+
+// One ray; `ring` is this thread's column of the block's shared ring.
 template <bool ANY_HIT>
-__global__ void __launch_bounds__(TRACE_BLOCK)
-trace_kernel(const float4* __restrict__ nodes, const float* __restrict__ p0,
-             const float* __restrict__ e1, const float* __restrict__ e2,
-             const float* __restrict__ o, const float* __restrict__ d,
-             const float* __restrict__ t_max, float* __restrict__ t_out,
-             int* __restrict__ slot_out, float* __restrict__ u_out,
-             float* __restrict__ v_out, bool* __restrict__ occ_out, int n_rays) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
+__device__ __forceinline__ void trace_ray(
+    const float4* __restrict__ wide, const float4* __restrict__ tri_vec,
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ t_max, float* __restrict__ t_out, int* __restrict__ slot_out,
+    float* __restrict__ u_out, float* __restrict__ v_out, bool* __restrict__ occ_out, int i,
+    int2* ring) {
   const float tmax = t_max[i];
   float t_best = tmax;
   int best_slot = -1;
@@ -67,64 +133,64 @@ trace_kernel(const float4* __restrict__ nodes, const float* __restrict__ p0,
 
   if (!(tmax < 0.0f)) {  // t_max < 0 marks a dead ray
     const Ray r = load_ray(o, d, i);
-
-    int stack_node[TRACE_STACK_SIZE];
-    float stack_tn[TRACE_STACK_SIZE];
+    int2 spill[TRACE_SPILL];
     int sp = 0;
-    float tn;
-    float4 a, b;
-    int node = 0;
-    bool live = slab(nodes, 0, r, t_best, tn, a, b);
-    while (live) {
-      const int count = __float_as_int(b.w);
-      const int link = __float_as_int(a.w);
-      bool descended = false;
-      if (count > 0) {
+    int code = 0;  // the root record
+    for (;;) {
+      if (code >= 0) {
+        const float4* rec = wide + 8 * code;
+        const float4 lx = __ldg(rec), hx = __ldg(rec + 1), ly = __ldg(rec + 2);
+        const float4 hy = __ldg(rec + 3), lz = __ldg(rec + 4), hz = __ldg(rec + 5);
+        const int4 ref = __ldg(reinterpret_cast<const int4*>(rec + 6));
+        const int n = __ldg(reinterpret_cast<const int*>(rec + 7));
+        int k0 = child_key(lx.x, ly.x, lz.x, hx.x, hy.x, hz.x, true, r, t_best);
+        int k1 = child_key(lx.y, ly.y, lz.y, hx.y, hy.y, hz.y, n > 1, r, t_best);
+        int k2 = child_key(lx.z, ly.z, lz.z, hx.z, hy.z, hz.z, n > 2, r, t_best);
+        int k3 = child_key(lx.w, ly.w, lz.w, hx.w, hy.w, hz.w, n > 3, r, t_best);
+        int c0 = ref.x, c1 = ref.y, c2 = ref.z, c3 = ref.w;
+        order(k0, c0, k1, c1);
+        order(k2, c2, k3, c3);
+        order(k0, c0, k2, c2);
+        order(k1, c1, k3, c3);
+        order(k1, c1, k2, c2);
+        if (k0 != kMissKey) {
+          code = c0;  // descend into the nearest; push the others, far first
+          if (k3 != kMissKey) push(ring, spill, sp, make_int2(c3, k3));
+          if (k2 != kMissKey) push(ring, spill, sp, make_int2(c2, k2));
+          if (k1 != kMissKey) push(ring, spill, sp, make_int2(c1, k1));
+          continue;
+        }
+      } else {
+        const int leaf = ~code;
+        const int first = leaf >> WIDE_LEAF_COUNT_BITS;
+        const int count = (leaf & ((1 << WIDE_LEAF_COUNT_BITS) - 1)) + 1;
         for (int k = 0; k < count; ++k) {
           float t, u, v;
-          if (triangle(p0, e1, e2, link + k, r, t, u, v) && t < t_best) {
+          const float4* tv = tri_vec + 3 * (first + k);
+          const float4 a = __ldg(tv), b = __ldg(tv + 1), c = __ldg(tv + 2);
+          const bool hit = triangle_values(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, r,
+                                           t, u, v);
+          if (hit && t < t_best) {
             t_best = t;
-            best_slot = link + k;
+            best_slot = first + k;
             best_u = u;
             best_v = v;
             if (ANY_HIT) break;
           }
         }
         if (ANY_HIT && best_slot >= 0) break;
-      } else {
-        float tl, tr;
-        float4 la, lb, ra, rb;
-        const bool hl = slab(nodes, node + 1, r, t_best, tl, la, lb);
-        const bool hr = slab(nodes, link, r, t_best, tr, ra, rb);
-        if (hl && hr) {
-          const bool left_near = tl <= tr;
-          stack_node[sp] = left_near ? link : node + 1;
-          stack_tn[sp] = left_near ? tr : tl;
-          ++sp;
-          node = left_near ? node + 1 : link;
-          a = left_near ? la : ra;
-          b = left_near ? lb : rb;
-          descended = true;
-        } else if (hl || hr) {
-          node = hl ? node + 1 : link;
-          a = hl ? la : ra;
-          b = hl ? lb : rb;
-          descended = true;
-        }
       }
-      if (descended) continue;
-      // pop the nearest pending subtree that can still hold a closer hit
-      live = false;
+      // pop the nearest pending child that can still hold a closer hit
+      bool live = false;
       while (sp > 0) {
-        --sp;
-        if (stack_tn[sp] <= t_best) {
-          node = stack_node[sp];
-          a = __ldg(nodes + 2 * node);
-          b = __ldg(nodes + 2 * node + 1);
+        const int2 e = pop(ring, spill, sp);
+        if (__int_as_float(e.y) <= t_best) {
+          code = e.x;
           live = true;
           break;
         }
       }
+      if (!live) break;
     }
   }
   if (ANY_HIT) {
@@ -135,6 +201,61 @@ trace_kernel(const float4* __restrict__ nodes, const float* __restrict__ p0,
     u_out[i] = best_u;
     v_out[i] = best_v;
   }
+}
+
+// Persistent warps: each warp takes its next 32 rays from *next_ray (zero
+// at launch) once all its lanes are done with the last 32. The ring is
+// dynamic shared memory, TRACE_RING * TRACE_BLOCK entries a block. The
+// explicit minimum of one block an SM lets ptxas spend 56 (any-hit) and
+// 62 (closest) registers, where without it it holds to 48 (10 resident
+// blocks an SM, not 8); the wider form measured 5-10% faster on the
+// primaries, the shadow rays and the deferred frame's longest launch.
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(TRACE_BLOCK, 1)
+trace_kernel(const float4* __restrict__ wide, const float4* __restrict__ tri_vec,
+             const float* __restrict__ o, const float* __restrict__ d,
+             const float* __restrict__ t_max, float* __restrict__ t_out,
+             int* __restrict__ slot_out, float* __restrict__ u_out, float* __restrict__ v_out,
+             bool* __restrict__ occ_out, int* __restrict__ next_ray, int n_rays) {
+  extern __shared__ int2 ring_smem[];
+  int2* ring = ring_smem + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(next_ray, 32);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (base >= n_rays) break;
+    const int i = base + lane;
+    if (i < n_rays)
+      trace_ray<ANY_HIT>(wide, tri_vec, o, d, t_max, t_out, slot_out, u_out, v_out, occ_out, i,
+                         ring);
+    __syncwarp();
+  }
+}
+
+// As many blocks as the card holds at once, no more than the rays need.
+template <bool ANY_HIT>
+int launch_trace(const void* wide, const void* tri_vec, const void* o, const void* d,
+                 const void* t_max, void* t_out, void* slot_out, void* u_out, void* v_out,
+                 void* occ_out, void* next_ray, int n_rays, int stack_entries, void* stream) {
+  if (stack_entries < 1 || stack_entries > TRACE_RING + TRACE_SPILL)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)TRACE_RING * TRACE_BLOCK * sizeof(int2);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trace_kernel<ANY_HIT>,
+                                                        TRACE_BLOCK, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid = grid_for(n_rays);
+  if (per_sm > 0 && (unsigned)(per_sm * sms) < grid.x) grid = dim3((unsigned)(per_sm * sms));
+  trace_kernel<ANY_HIT><<<grid, TRACE_BLOCK, smem, (cudaStream_t)stream>>>(
+      (const float4*)wide, (const float4*)tri_vec, (const float*)o, (const float*)d,
+      (const float*)t_max, (float*)t_out, (int*)slot_out, (float*)u_out, (float*)v_out,
+      (bool*)occ_out, (int*)next_ray, n_rays);
+  return (int)cudaGetLastError();
 }
 
 // One step per iteration, as ops/trace.py:_traverse: slab-test the pointed
@@ -191,31 +312,35 @@ trace_steps_kernel(const float* __restrict__ node_min, const float* __restrict__
 
 extern "C" {
 
+// The binary node layout's stack bound of phase A (two_phase.cu), whose
+// wrapper checks it through this library.
 int idk_trace_stack_size() { return TRACE_STACK_SIZE; }
 
-// Closest hit per ray. All pointers are device pointers; outputs are
-// (n_rays,) f32 t, i32 slot, f32 u, f32 v. Returns cudaGetLastError().
-int idk_trace_closest(const void* nodes, const void* p0, const void* e1,
-                      const void* e2, const void* o, const void* d,
-                      const void* t_max, void* t_out, void* slot_out,
-                      void* u_out, void* v_out, int n_rays, void* stream) {
-  trace_kernel<false><<<grid_for(n_rays), TRACE_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float4*)nodes, (const float*)p0, (const float*)e1, (const float*)e2,
-      (const float*)o, (const float*)d, (const float*)t_max, (float*)t_out,
-      (int*)slot_out, (float*)u_out, (float*)v_out, nullptr, n_rays);
-  return (int)cudaGetLastError();
+// The most stack entries a ray can hold (3 per record level of the tree).
+int idk_trace_stack_limit() { return TRACE_RING + TRACE_SPILL; }
+
+// Dynamic shared memory a trace_kernel block takes (the stack's ring).
+int idk_trace_shared_bytes() { return TRACE_RING * TRACE_BLOCK * (int)sizeof(int2); }
+
+// Closest hit per ray over the 4-wide records `wide` ((M,32) i32) and the
+// leaf table tri_vec ((T,12) f32). All pointers are device pointers;
+// outputs are (n_rays,) f32 t, i32 slot, f32 u, f32 v. `next_ray` is one
+// zeroed i32; `stack_entries` the tree's stack depth (3 per record level).
+// Returns cudaGetLastError().
+int idk_trace_closest(const void* wide, const void* tri_vec, const void* o, const void* d,
+                      const void* t_max, void* t_out, void* slot_out, void* u_out, void* v_out,
+                      void* next_ray, int n_rays, int stack_entries, void* stream) {
+  return launch_trace<false>(wide, tri_vec, o, d, t_max, t_out, slot_out, u_out, v_out,
+                             nullptr, next_ray, n_rays, stack_entries, stream);
 }
 
 // Occlusion per ray: occ_out (n_rays,) bool, true where a triangle lies at
 // 0 < t < t_max. Returns cudaGetLastError().
-int idk_trace_any(const void* nodes, const void* p0, const void* e1,
-                  const void* e2, const void* o, const void* d,
-                  const void* t_max, void* occ_out, int n_rays, void* stream) {
-  trace_kernel<true><<<grid_for(n_rays), TRACE_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float4*)nodes, (const float*)p0, (const float*)e1, (const float*)e2,
-      (const float*)o, (const float*)d, (const float*)t_max, nullptr, nullptr,
-      nullptr, nullptr, (bool*)occ_out, n_rays);
-  return (int)cudaGetLastError();
+int idk_trace_any(const void* wide, const void* tri_vec, const void* o, const void* d,
+                  const void* t_max, void* occ_out, void* next_ray, int n_rays,
+                  int stack_entries, void* stream) {
+  return launch_trace<true>(wide, tri_vec, o, d, t_max, nullptr, nullptr, nullptr, nullptr,
+                            occ_out, next_ray, n_rays, stack_entries, stream);
 }
 
 // Closest hit and traversal steps per ray over the threaded arrays

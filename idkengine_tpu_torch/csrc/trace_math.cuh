@@ -99,6 +99,30 @@ __device__ __forceinline__ bool triangle(const float* __restrict__ p0,
   return ok_det && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f;
 }
 
+// triangle() on values already loaded (p0, e1, e2 of one slot), in the
+// same operation order: the trace kernel's vector leaf loads.
+__device__ __forceinline__ bool triangle_values(float p0x, float p0y, float p0z, float e1x,
+                                                float e1y, float e1z, float e2x, float e2y,
+                                                float e2z, const Ray& r, float& t, float& u,
+                                                float& v) {
+  const float pvx = r.dy * e2z - r.dz * e2y;
+  const float pvy = r.dz * e2x - r.dx * e2z;
+  const float pvz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const bool ok_det = fabsf(det) > 1e-12f;
+  const float inv_det = ok_det ? 1.0f / det : 0.0f;
+  const float sx = r.ox - p0x;
+  const float sy = r.oy - p0y;
+  const float sz = r.oz - p0z;
+  u = (sx * pvx + sy * pvy + sz * pvz) * inv_det;
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  return ok_det && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f;
+}
+
 inline dim3 grid_for(int n_rays) {
   return dim3((unsigned)((n_rays + TRACE_BLOCK - 1) / TRACE_BLOCK));
 }

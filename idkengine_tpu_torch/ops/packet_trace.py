@@ -5,11 +5,12 @@ Counterpart: idkengine_tpu/ops/packet_trace.py (the Pallas packet tracer).
 `trace_closest`/`trace_any` answer what the JAX package's whole-table
 (`packet_trace_closest/any`) and segmented (`packet_trace_*_steered`, loop or
 unrolled) entry points answer, over one whole-scene BVH: the kernel
-`csrc/trace.cu` replaces the three TPU kernels K1, K2 and K4 (see its
-header). `trace_closest_steps` adds per-ray traversal steps for the debug
-heatmap (K1 with `debug_iters`). The kernel is compiled with nvcc on first
-use into `build/` and bound with ctypes. A CUDA tensor reaches the kernel or
-the call raises; the plain version runs only for tensors on the CPU.
+`csrc/trace.cu` (a 4-wide tree, `SceneArrays.bvh4_nodes`) replaces the three
+TPU kernels K1, K2 and K4 (see its header). `trace_closest_steps` adds
+per-ray traversal steps for the debug heatmap (K1 with `debug_iters`), over
+the threaded arrays. The kernels are compiled with nvcc on first use into
+`build/` and bound with ctypes. A CUDA tensor reaches the kernel or the call
+raises; the plain version runs only for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ TRACE_HEADER = os.path.join(CSRC_DIR, "trace_math.cuh")  # shared with two_phase
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# the trace kernel's stack entries a ray: csrc/trace.cu idk_trace_stack_limit()
+WIDE_STACK_LIMIT = 96
+
 _lib = None
 
 
@@ -37,40 +41,63 @@ def build_kernels() -> tuple[str, str]:
                                 [find_nvcc(), *NVCC_FLAGS], headers=(TRACE_HEADER,))
 
 
+def bind_library(path: str) -> ctypes.CDLL:
+    """Load a library built from csrc/trace.cu and declare its entry points."""
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.idk_trace_stack_size, lib.idk_trace_stack_limit, lib.idk_trace_shared_bytes):
+        fn.restype = ci
+        fn.argtypes = []
+    lib.idk_trace_closest.restype = ci
+    lib.idk_trace_closest.argtypes = [vp] * 10 + [ci, ci, vp]
+    lib.idk_trace_any.restype = ci
+    lib.idk_trace_any.argtypes = [vp] * 7 + [ci, ci, vp]
+    lib.idk_trace_closest_steps.restype = ci
+    lib.idk_trace_closest_steps.argtypes = [vp] * 17 + [ci, vp]
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build_kernels()[0])
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.idk_trace_stack_size.restype = ci
-        lib.idk_trace_stack_size.argtypes = []
-        lib.idk_trace_closest.restype = ci
-        lib.idk_trace_closest.argtypes = [vp] * 11 + [ci, vp]
-        lib.idk_trace_any.restype = ci
-        lib.idk_trace_any.argtypes = [vp] * 8 + [ci, vp]
-        lib.idk_trace_closest_steps.restype = ci
-        lib.idk_trace_closest_steps.argtypes = [vp] * 17 + [ci, vp]
+        lib = bind_library(build_kernels()[0])
+        if lib.idk_trace_stack_limit() != WIDE_STACK_LIMIT:
+            raise RuntimeError(f"{TRACE_SOURCE} holds {lib.idk_trace_stack_limit()} stack "
+                               f"entries a ray, the wrapper expects {WIDE_STACK_LIMIT}")
         _lib = lib
     return _lib
 
 
-def _check_inputs(scene: SceneArrays, o, d, t_max) -> torch.Tensor:
-    """Validate kernel inputs; returns t_max as an (R,) float32 tensor."""
-    r = o.shape[0]
-    dev = o.device
-    if o.shape != (r, 3) or d.shape != (r, 3):
-        raise ValueError(f"o and d must be (R,3), got {tuple(o.shape)} and {tuple(d.shape)}")
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(r).contiguous()
-    tensors = {"o": o, "d": d, "t_max": t_max, "bvh_nodes": scene.bvh_nodes,
-               "tri_p0": scene.tri_p0, "tri_e1": scene.tri_e1, "tri_e2": scene.tri_e2}
-    for name, x in tensors.items():
+def _check_tensors(dev, tensors: dict):
+    """Each named tensor (x, dtype) on `dev`, contiguous, of its dtype."""
+    for name, (x, want) in tensors.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, the rays on {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        want = torch.int32 if name == "bvh_nodes" else torch.float32
         if x.dtype != want:
             raise TypeError(f"{name} must be {want}, got {x.dtype}")
+
+
+def _check_rays(o, d, t_max) -> torch.Tensor:
+    """Validate the rays; returns t_max as an (R,) float32 tensor."""
+    r = o.shape[0]
+    if o.shape != (r, 3) or d.shape != (r, 3):
+        raise ValueError(f"o and d must be (R,3), got {tuple(o.shape)} and {tuple(d.shape)}")
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(r).contiguous()
+    f32 = torch.float32
+    _check_tensors(o.device, {"o": (o, f32), "d": (d, f32), "t_max": (t_max, f32)})
+    return t_max
+
+
+def _check_inputs(scene: SceneArrays, o, d, t_max) -> torch.Tensor:
+    """Validate the inputs of a kernel over the binary layout (the steps
+    kernel, phase A and B); returns t_max as an (R,) float32 tensor."""
+    t_max = _check_rays(o, d, t_max)
+    f32 = torch.float32
+    _check_tensors(o.device, {"bvh_nodes": (scene.bvh_nodes, torch.int32),
+                              "tri_p0": (scene.tri_p0, f32), "tri_e1": (scene.tri_e1, f32),
+                              "tri_e2": (scene.tri_e2, f32)})
     if scene.bvh_nodes.dim() != 2 or scene.bvh_nodes.shape[1] != 8:
         raise ValueError("bvh_nodes must be (N,8) int32 records")
     lib = _load()
@@ -79,6 +106,34 @@ def _check_inputs(scene: SceneArrays, o, d, t_max) -> torch.Tensor:
             f"BVH depth {scene.bvh_depth} needs a traversal stack of "
             f"{scene.bvh_depth - 1}; the kernel holds {lib.idk_trace_stack_size()}")
     return t_max
+
+
+def wide_stack_entries(scene: SceneArrays) -> int:
+    """The trace kernel's stack depth for the scene's wide tree: a record
+    pushes at most 3 of its 4 children, so 3 entries per record level.
+    Raises where the kernel's stack (WIDE_STACK_LIMIT entries) is smaller."""
+    entries = 3 * scene.bvh4_depth
+    if entries > WIDE_STACK_LIMIT:
+        raise ValueError(
+            f"wide BVH depth {scene.bvh4_depth} needs a traversal stack of {entries} "
+            f"entries; the kernel holds {WIDE_STACK_LIMIT}")
+    return entries
+
+
+def _check_wide(scene: SceneArrays, o, d, t_max) -> tuple[torch.Tensor, int]:
+    """Validate the trace kernel's inputs; returns (t_max as an (R,) float32
+    tensor, stack entries). Raises where the wide tree is too deep for the
+    kernel's stack."""
+    t_max = _check_rays(o, d, t_max)
+    f32 = torch.float32
+    _check_tensors(o.device, {"bvh4_nodes": (scene.bvh4_nodes, torch.int32),
+                              "tri_vec": (scene.tri_vec, f32)})
+    w = scene.bvh4_nodes
+    if w.dim() != 2 or w.shape[1] != 32 or w.shape[0] < 1 or w.data_ptr() % 128:
+        raise ValueError("bvh4_nodes must be (M,32) int32 records, 128-byte aligned")
+    if scene.tri_vec.shape != (scene.tri_p0.shape[0], 12):
+        raise ValueError("tri_vec must be (T,12) float32")
+    return t_max, wide_stack_entries(scene)
 
 
 def _on_cpu(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor) -> bool:
@@ -96,6 +151,10 @@ def _ptr(x: torch.Tensor):
     return ctypes.c_void_p(x.data_ptr())
 
 
+def _wide_tables(scene: SceneArrays) -> tuple:
+    return _ptr(scene.bvh4_nodes), _ptr(scene.tri_vec)
+
+
 def _raise_on(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -106,18 +165,19 @@ def trace_closest(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max) -
     miss; t_max < 0 marks a dead ray. o/d: (R,3) f32; t_max: (R,) or scalar."""
     if _on_cpu(scene, o, d):
         return _plain.trace_closest(scene, o, d, t_max)
-    t_max = _check_inputs(scene, o, d, t_max)
+    t_max, entries = _check_wide(scene, o, d, t_max)
     r = o.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=o.device)
     slot = torch.empty(r, dtype=torch.int32, device=o.device)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     if r:
+        next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
         stream = torch.cuda.current_stream(o.device).cuda_stream
         err = _load().idk_trace_closest(
-            _ptr(scene.bvh_nodes), _ptr(scene.tri_p0), _ptr(scene.tri_e1),
-            _ptr(scene.tri_e2), _ptr(o), _ptr(d), _ptr(t_max), _ptr(t),
-            _ptr(slot), _ptr(u), _ptr(v), r, ctypes.c_void_p(stream))
+            *_wide_tables(scene), _ptr(o), _ptr(d), _ptr(t_max), _ptr(t),
+            _ptr(slot), _ptr(u), _ptr(v), _ptr(next_ray), r, entries,
+            ctypes.c_void_p(stream))
         _raise_on(err, "trace_closest")
         trace_closest.launches += 1
     return Hit(t=t, slot=slot, u=u, v=v)
@@ -128,15 +188,15 @@ def trace_any(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max) -> to
     0 < t < t_max. t_max < 0 marks a dead ray (never occluded)."""
     if _on_cpu(scene, o, d):
         return _plain.trace_any(scene, o, d, t_max)
-    t_max = _check_inputs(scene, o, d, t_max)
+    t_max, entries = _check_wide(scene, o, d, t_max)
     r = o.shape[0]
     occ = torch.empty(r, dtype=torch.bool, device=o.device)
     if r:
+        next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
         stream = torch.cuda.current_stream(o.device).cuda_stream
         err = _load().idk_trace_any(
-            _ptr(scene.bvh_nodes), _ptr(scene.tri_p0), _ptr(scene.tri_e1),
-            _ptr(scene.tri_e2), _ptr(o), _ptr(d), _ptr(t_max), _ptr(occ), r,
-            ctypes.c_void_p(stream))
+            *_wide_tables(scene), _ptr(o), _ptr(d), _ptr(t_max), _ptr(occ), _ptr(next_ray),
+            r, entries, ctypes.c_void_p(stream))
         _raise_on(err, "trace_any")
         trace_any.launches += 1
     return occ

@@ -14,13 +14,14 @@ JAX package's sequential strict-less loop keeps.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..bvh.flatten import FlatBvh, FlatTriangles, bvh2_nodes
+from ..bvh.flatten import FlatBvh, FlatTriangles, bvh2_nodes, bvh4_nodes
 from .intersect import INF, ray_aabb, ray_triangle
 
 DEFAULT_MAX_LEAF = 4  # default for bvh.BuildSettings.max_leaf_triangle_count
@@ -36,7 +37,10 @@ class SceneArrays:
     """Device-resident flattened scene (single merged BLAS).
 
     The threaded arrays serve the plain trace; `bvh_nodes` is the same tree
-    in the CUDA kernel's binary layout (bvh/flatten.py:bvh2_nodes)."""
+    in the binary layout of the two-phase kernels
+    (bvh/flatten.py:bvh2_nodes), `bvh4_nodes` collapsed into the trace
+    kernel's 4-wide layout (bvh/flatten.py:bvh4_nodes), and `tri_vec` the
+    triangles as the trace kernel loads them (three float4s a slot)."""
 
     node_min: torch.Tensor  # (N,3) f32
     node_max: torch.Tensor  # (N,3) f32
@@ -53,7 +57,11 @@ class SceneArrays:
     tri_gn: torch.Tensor  # (T,3) f32 face normal
     bvh_nodes: torch.Tensor  # (N,8) i32 kernel node records
     bvh_depth: int  # tree depth, root = 1
+    bvh4_nodes: torch.Tensor  # (M,32) i32 trace kernel's 4-wide records
+    bvh4_depth: int  # wide tree depth in records, root = 1
+    tri_vec: torch.Tensor  # (T,12) f32 p0 | e1 | e2 | pad, the trace kernel's leaf loads
     max_leaf: int = DEFAULT_MAX_LEAF
+    bvh4_build_ms: float = 0.0  # host time of bvh4_nodes
 
     @property
     def device(self) -> torch.device:
@@ -78,6 +86,12 @@ def from_jax_scene_arrays(arrays: dict, max_leaf: int, device) -> SceneArrays:
     a = {k: np.asarray(arrays[k]) for k in JAX_FIELDS}
     nodes, depth = bvh2_nodes(a["node_min"], a["node_max"], a["node_first"],
                               a["node_count"], a["miss_link"])
+    t0 = time.perf_counter()
+    wide, wide_depth, _ = bvh4_nodes(a["node_min"], a["node_max"], a["node_first"],
+                                     a["node_count"], a["miss_link"])
+    wide_ms = (time.perf_counter() - t0) * 1e3
+    tri = [np.asarray(a[k], np.float32).reshape(-1, 3) for k in ("tri_p0", "tri_e1", "tri_e2")]
+    tri_vec = np.concatenate([*tri, np.zeros_like(tri[0])], axis=1)
     dtypes = {"node_first": np.int32, "node_count": np.int32, "hit_link": np.int32,
               "miss_link": np.int32, "tri_n": np.int64, "tri_mat": np.int32}
 
@@ -87,7 +101,9 @@ def from_jax_scene_arrays(arrays: dict, max_leaf: int, device) -> SceneArrays:
 
     return SceneArrays(
         **{k: put(a[k], dtypes.get(k, np.float32)) for k in JAX_FIELDS},
-        bvh_nodes=put(nodes, np.int32), bvh_depth=depth, max_leaf=int(max_leaf))
+        bvh_nodes=put(nodes, np.int32), bvh_depth=depth, bvh4_nodes=put(wide, np.int32),
+        bvh4_depth=wide_depth, tri_vec=put(tri_vec), max_leaf=int(max_leaf),
+        bvh4_build_ms=wide_ms)
 
 
 class Hit(NamedTuple):

@@ -13,6 +13,15 @@ same t, met in another order: the kernel visits near children first, the
 plain version in DFS order), on at most 0.1% of rays. Phase A's count of
 wanted leaves does not depend on the visiting order, so it is equal on
 every ray, and the lists hold the same sets where they did not overflow.
+Occlusion does not depend on the order either (until the first occluder
+every leaf whose box the ray passes before t_max is tested), so the any-hit
+kernel equals its plain version on every ray. Rays from 1e8 units away
+(f32 spacing 8 units) keep the hit mask, and t within 1e-5 relative on
+SLOT_AGREE of the rays, but not the share of equal slots: there the
+Möller–Trumbore t of a triangle carries errors of thousands of units (s =
+o - p0 is 1e8 long), many hits tie, and a triangle's t can fall far below
+its own box's entry distance, so which hit a closest query keeps depends
+on which boxes it culled first (see test_torch_wide_bvh.py).
 """
 import numpy as np
 import pytest
@@ -87,6 +96,88 @@ def test_any_kernel_matches_plain(dev, scenes):
     assert kern.trace_any.launches == before + 1
     want = plain.trace_any(sc, o, d, t_max)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def _rays_of(kind, sc, n, seed, dev):
+    """Rays of one kind (o, d, t_max) from a numpy seed: random directions
+    from random points of the scene box ("incoherent"), the same with dead
+    rays, t_max = 0 and -0.0 among short and long limits ("dead_and_zero"),
+    from random points inside random leaves' boxes ("inside_leaves"), or
+    from 1e8 units away towards random points of the scene ("from_1e8")."""
+    rng = np.random.default_rng(seed)
+    lo, hi = sc.node_min[0].cpu().numpy(), sc.node_max[0].cpu().numpy()
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    t_max = np.full(n, 3.4e38, np.float32)
+    if kind == "dead_and_zero":
+        t_max = rng.choice(np.float32([-1.0, 0.0, -0.0, 0.5, 5.0, 3.4e38]), n)
+    elif kind == "inside_leaves":
+        count = sc.node_count.cpu().numpy()
+        leaf = rng.choice(np.nonzero(count > 0)[0], n)
+        o = rng.uniform(sc.node_min[leaf].cpu().numpy(), sc.node_max[leaf].cpu().numpy())
+    elif kind == "from_1e8":
+        o = o - d * np.float32(1e8)
+        t_max[:] = 2e8
+    return (torch.from_numpy(o.astype(np.float32)).to(dev), torch.from_numpy(d).to(dev),
+            torch.from_numpy(t_max.astype(np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("kind", ["incoherent", "dead_and_zero", "inside_leaves", "from_1e8"])
+def test_wide_kernel_matches_plain(dev, scenes, kind):
+    """The 4-wide kernel against the plain stackless trace: the same hit
+    mask, t = t_max on a miss, t, u and v bit-equal where the slots agree,
+    slots equal on SLOT_AGREE of the rays (from 1e8: t within 1e-5
+    relative on SLOT_AGREE of the rays instead); occlusion equal on every
+    ray and equal to the kernel's own closest hit before t_max."""
+    _, sc, _ = scenes
+    o, d, t_max = _rays_of(kind, sc, 1 << 16, 21, dev)
+    got = kern.trace_closest(sc, o, d, t_max)
+    want = plain.trace_closest(sc, o, d, t_max)
+    hit = got.slot >= 0
+    assert torch.equal(hit, want.slot >= 0)
+    assert torch.equal(got.t[~hit], t_max[~hit]) and not hit[t_max <= 0].any()
+    same = got.slot == want.slot
+    for k in ("t", "u", "v"):
+        assert torch.equal(getattr(got, k)[same], getattr(want, k)[same]), k
+    if kind == "from_1e8":
+        close = torch.isclose(got.t, want.t, rtol=1e-5, atol=0)
+        assert close.float().mean().item() >= SLOT_AGREE
+    else:
+        assert same.float().mean().item() >= SLOT_AGREE
+    assert hit.float().mean().item() > (0.01 if kind == "from_1e8" else 0.2)
+    occ = kern.trace_any(sc, o, d, t_max)
+    assert torch.equal(occ, plain.trace_any(sc, o, d, t_max))
+    assert torch.equal(occ, hit)
+
+
+@pytest.mark.parametrize("n", [1, 5, 33, 1 << 20])
+def test_wide_kernel_batch_sizes(dev, scenes, n):
+    """Launches smaller than one warp and larger than the card holds at
+    once: every ray answered, as the plain version answers it."""
+    _, sc, _ = scenes
+    o, d, t_max = _rays_of("dead_and_zero", sc, n, 22, dev)
+    got = kern.trace_closest(sc, o, d, t_max)
+    want = plain.trace_closest(sc, o, d, t_max)
+    assert torch.equal(got.slot >= 0, want.slot >= 0)
+    same = got.slot == want.slot
+    assert same.float().mean().item() >= SLOT_AGREE
+    assert torch.equal(got.t[same], want.t[same])
+    assert torch.equal(kern.trace_any(sc, o, d, t_max), plain.trace_any(sc, o, d, t_max))
+
+
+def test_wide_kernel_refuses_a_stack_it_cannot_hold(dev, scenes):
+    import dataclasses
+
+    _, sc, _ = scenes
+    o, d, _ = _rays_of("incoherent", sc, 64, 23, dev)
+    deep = dataclasses.replace(sc, bvh4_depth=kern.WIDE_STACK_LIMIT // 3 + 1)
+    before = (kern.trace_closest.launches, kern.trace_any.launches)
+    with pytest.raises(ValueError, match="stack"):
+        kern.trace_closest(deep, o, d, 1.0)
+    with pytest.raises(ValueError, match="stack"):
+        kern.trace_any(deep, o, d, 1.0)
+    assert (kern.trace_closest.launches, kern.trace_any.launches) == before
 
 
 def test_kernel_refuses_bad_inputs(dev, scenes):
