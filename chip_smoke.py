@@ -11,7 +11,8 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      together;
   3. build the 2.8M-triangle atrium with the benchmark's build settings,
      lights and camera (SceneDatabase.build on the card); the trace
-     kernel's 4-wide table: size, depth, build time, stack;
+     kernel's 4-wide table: size, depth, build time, stack; the steps
+     kernel's threaded records: size, build time; the leaf bits;
   4. trace the path-traced frame's ray batches (1920x1080 primary rays;
      shadow rays from their hit points; the frame's first bounce batch)
      with each kernel and with its plain PyTorch version, compare and time
@@ -202,7 +203,12 @@ def phase_scene(dev):
         f"(binary {scene.bvh_depth}), {w[:, 28].float().mean().item():.2f} children a record, "
         f"built in {scene.bvh4_build_ms:.1f} ms ({scene.bvh4_build_ms / m.build_ms * 100:.1f}% "
         f"of the BLAS build); leaf table tri_vec {scene.tri_vec.numel() * 4 / 1e6:.1f} MB; "
-        f"stack {entries} entries a ray (the kernel holds {WIDE_STACK_LIMIT})")
+        f"stack {entries} entries a ray (the kernel holds {WIDE_STACK_LIMIT}); steps kernel's "
+        f"threaded records {scene.bvh_thread.shape[0]}, {scene.bvh_thread.numel() * 4 / 1e6:.1f} "
+        f"MB, built in {scene.thread_build_ms:.1f} ms; the wide children's binary nodes "
+        f"{scene.bvh4_child.numel() * 4 / 1e6:.1f} MB; leaf references with "
+        f"{scene.bvh4_leaf_bits} count bits (largest leaf "
+        f"{int(scene.node_count.max().item())} triangles)")
     return db, scene, cam
 
 
@@ -256,9 +262,11 @@ def compare_trace(kind, scene, o, d, t_max, reps=10):
     agree, err = check_agreement(kind, got, want, f"{kind} against the plain version")
     out_bytes = 16 if kind == "trace_closest" else 1  # t, slot, u, v; or one bool
     ms = cuda_time_ms(lambda: getattr(kern, kind)(scene, o, d, t_max), reps)
-    scene_bytes = scene.bvh_nodes.numel() * 4 + 3 * scene.tri_p0.numel() * 4
-    # rays (o, d, t_max) read once, results written once, the node and
-    # triangle tables read once
+    # rays (o, d, t_max) read once, results written once, the smallest node
+    # table the walk can take (the 4-wide records; the binary ones are
+    # larger) and the triangles at 36 B a slot read once
+    scene_bytes = (min(scene.bvh4_nodes.numel(), scene.bvh_nodes.numel()) * 4
+                   + 3 * scene.tri_p0.numel() * 4)
     ray_bytes = r * 24 + torch.as_tensor(t_max).numel() * 4
     bound_ms = (ray_bytes + r * out_bytes + scene_bytes) / HBM_BYTES_PER_S * 1e3
     return got, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -708,13 +716,15 @@ def compare_phase_a(scene, o, d, t_max):
     if over.numel():
         sel = over[::max(1, over.numel() // OVERFLOW_CHECK)][:OVERFLOW_CHECK]
         full, _ = tp.phase_a_plain(scene, o[sel], d[sel], t_max[sel], int(cnt[sel].max()))
-        rows = torch.arange(sel.numel(), device=o.device)[:, None] * scene.bvh_nodes.shape[0]
+        rows = torch.arange(sel.numel(), device=o.device)[:, None] * scene.node_count.shape[0]
         got = lists[sel].long()
         if not torch.isin((rows + got)[got >= 0], (rows + full.long())[full >= 0]).all():
             raise AssertionError("phase A: an overflow ray recorded a leaf it does not want")
     ms = cuda_time_ms(lambda: tp.phase_a(scene, o, d, t_max, n_slots), 5)
-    # each ray (o, d, t_max) read once, the node table read once, cnt and
-    # the D list slots written once
+    # each ray (o, d, t_max) read once, the smallest table the walk can take
+    # read once (the binary records, 32 B a node; the 4-wide records with
+    # the child map that names their leaves are larger), cnt and the D list
+    # slots written once
     nbytes = r * 28 + scene.bvh_nodes.numel() * 4 + r * (n_slots + 1) * 4
     cf = cnt.float()
     stats = dict(overflow=(cnt > n_slots).float().mean().item(), cnt_mean=cf.mean().item(),
@@ -924,10 +934,8 @@ def phase_debug_view(db, scene, cam, dev, card):
     if not (0.0 <= img.min().item() and img.max().item() <= 1.0 and img.std().item() > 0.01):
         raise AssertionError("heatmap leaves [0,1] or is flat")
 
-    r = WIDTH * HEIGHT
-    o, d = generate_rays(cam.ray_params(WIDTH, HEIGHT), WIDTH, HEIGHT,
-                         torch.zeros((r, 2), device=dev))
-    t_max = torch.full((r,), 3.4e38, device=dev)
+    o, d, t_max = debug_view_rays(cam, dev)
+    r = o.shape[0]
     got, steps = kern.trace_closest_steps(scene, o, d, t_max)
     t0 = time.perf_counter()
     want, want_steps = plain.trace_closest_steps(scene, o, d, t_max)
@@ -941,18 +949,34 @@ def phase_debug_view(db, scene, cam, dev, card):
             raise AssertionError(f"trace_closest_steps: {k} differs from the plain version")
     ms = cuda_time_ms(lambda: kern.trace_closest_steps(scene, o, d, t_max), 5)
     one_ms = cuda_time_ms(lambda: kern.trace_closest(scene, o, d, t_max), 5)
-    # rays read once, the threaded arrays (40 B a node) and the triangles
-    # (36 B each) read once, t/slot/u/v/steps written once
+    # rays read once, the least of a node the walk needs (its box, miss
+    # link and leaf word: 32 B, the threaded record; the hit link follows
+    # from the order) and the triangles (36 B each) read once,
+    # t/slot/u/v/steps written once
     n_nodes, n_tris = scene.node_count.shape[0], scene.tri_p0.shape[0]
-    nbytes = r * 28 + n_nodes * 40 + n_tris * 36 + r * 20
+    nbytes = r * 28 + n_nodes * 32 + n_tris * 36 + r * 20
     sf = steps.float()
     log(f"# debug view {WIDTH}x{HEIGHT}: heatmap {view_ms:.2f} ms (host); steps kernel "
-        f"{ms:.3f} ms (one-phase trace_closest {one_ms:.3f} ms), plain {plain_ms:.1f} ms; "
-        f"steps mean {sf.mean().item():.1f} max {int(steps.max().item())}; steps and hits "
-        f"equal on every ray; launches {launches}")
+        f"{ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (one-phase trace_closest "
+        f"{one_ms:.4f} ms), plain {plain_ms:.1f} ms; steps mean {sf.mean().item():.1f} p99 "
+        f"{sf.quantile(0.99).item():.0f} max {int(steps.max().item())}; steps and hits equal "
+        f"on every ray; launches {launches}; on {card}")
     return dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 bound_by="bytes", library_ms=None), launches
+
+
+def debug_view_rays(cam, dev):
+    """The debug view's rays (o, d, t_max): 1920x1080 primaries through the
+    pixel centres, no lens jitter, no limit."""
+    import torch
+
+    from idkengine_tpu_torch.render.camera import generate_rays
+
+    r = WIDTH * HEIGHT
+    o, d = generate_rays(cam.ray_params(WIDTH, HEIGHT), WIDTH, HEIGHT,
+                         torch.zeros((r, 2), device=dev))
+    return o, d, torch.full((r,), 3.4e38, device=dev)
 
 
 def phase_small_pipeline(dev):

@@ -122,8 +122,9 @@ def tree_collapse4(node_min, node_max, node_first, node_count, miss_link,
     m = lib.bvh_collapse4(*(a.ctypes.data for a in arrays), np.uint32(n), np.uint32(leaf_bits),
                           rec.ctypes.data, _i64p(src), ctypes.byref(depth))
     if m < 0:
-        raise ValueError(f"a leaf reference does not fit the wide layout: leaves hold at most "
-                         f"{1 << leaf_bits} triangles and slots end below {1 << (31 - leaf_bits)}")
+        raise ValueError(f"the BVH's slot space does not fit a leaf reference: leaves hold at "
+                         f"most {1 << leaf_bits} triangles and slots end below "
+                         f"{1 << (31 - leaf_bits)}")
     return rec[:m], int(depth.value), src[:m]
 
 

@@ -2,11 +2,11 @@
 Counterpart: idkengine_tpu/bvh/flatten.py.
 
 `thread_bvh` and `flatten_triangles` are the JAX package's numpy functions,
-carried over. `bvh2_nodes` (the binary layout of the two-phase and steps
-kernels) and `bvh4_nodes` (the 4-wide layout of the trace kernel) add the
-CUDA kernels' node tables, derived from the threaded arrays alone so that
-any threaded scene (the port's own build or one handed over from the JAX
-package) can be traced on the card.
+carried over. `bvh2_nodes` (the binary layout of phase A), `thread_nodes`
+(the threaded records of the steps kernel) and `bvh4_nodes` (the 4-wide
+layout of the trace kernel) add the CUDA kernels' node tables, derived from
+the threaded arrays alone so that any threaded scene (the port's own build
+or one handed over from the JAX package) can be traced on the card.
 """
 from __future__ import annotations
 
@@ -115,7 +115,7 @@ def flatten_triangles(
 def bvh2_nodes(node_min: np.ndarray, node_max: np.ndarray,
                node_first: np.ndarray, node_count: np.ndarray,
                miss_link: np.ndarray) -> tuple[np.ndarray, int]:
-    """The CUDA trace kernel's binary node layout, from threaded arrays.
+    """Phase A's binary node layout (csrc/two_phase.cu), from threaded arrays.
 
     One 32-byte record per node, in the threaded (DFS) order:
         min[3] f32 | right_or_first i32 | max[3] f32 | count i32
@@ -144,11 +144,59 @@ def bvh2_nodes(node_min: np.ndarray, node_max: np.ndarray,
     return rec, depth
 
 
-LEAF_COUNT_BITS = 5  # a bvh4_nodes leaf reference packs (first, count - 1) in 31 bits
+MIN_LEAF_BITS = 5  # a leaf reference packs (first, count - 1) in 31 bits
+
+
+def leaf_bits(node_count: np.ndarray) -> int:
+    """The fewest bits, at least MIN_LEAF_BITS, that hold `count - 1` of the
+    largest leaf: the split of a leaf reference ~(first << bits | count - 1)
+    that leaves the most room to `first`."""
+    largest = int(np.max(node_count, initial=1))
+    return max(MIN_LEAF_BITS, (largest - 1).bit_length())
+
+
+def leaf_reference(first, count, bits: int):
+    """~(first << bits | count - 1), int32: a leaf reference of the wide
+    records and the threaded records' leaf word (always < 0). Raises
+    ValueError where it does not fit 31 bits: `first + count` above the slot
+    space 2^(31 - bits) that the largest leaf leaves."""
+    first, count = np.asarray(first, np.int64), np.asarray(count, np.int64)
+    _check_slot_space(int(np.max(first + count, initial=0)), int(np.max(count, initial=1)),
+                      bits)
+    return (~((first << bits) | (count - 1))).astype(np.int32)
+
+
+def _check_slot_space(end: int, largest: int, bits: int):
+    if largest > 1 << bits or end > 1 << (31 - bits):
+        raise ValueError(
+            f"the BVH's slot space does not fit a leaf reference: leaves of up to {largest} "
+            f"triangles take {bits} bits of 31, which leaves room for {1 << (31 - bits)} "
+            f"triangle slots, and the slots end at {end}")
+
+
+def thread_nodes(node_min: np.ndarray, node_max: np.ndarray, node_first: np.ndarray,
+                 node_count: np.ndarray, miss_link: np.ndarray, bits: int) -> np.ndarray:
+    """The steps kernel's threaded records: one aligned 32-byte record per
+    binary node, in the threaded (DFS) order, read as two float4 loads:
+        min[3] f32 | miss_link i32 | max[3] f32 | leaf word i32
+    The leaf word is 0 for an interior node and leaf_reference(first, count,
+    bits) (< 0) for a leaf. The hit link is not stored: an interior node's
+    is the next record, a leaf's its miss link (thread_bvh). Boxes are the
+    threaded arrays' f32 values bit for bit. Returns (N,8) int32."""
+    n = node_min.shape[0]
+    count = np.asarray(node_count, np.int32)
+    leaf = count > 0
+    rec = np.empty((n, 8), np.int32)
+    rec[:, 0:3] = np.ascontiguousarray(node_min, np.float32).view(np.int32)
+    rec[:, 3] = miss_link
+    rec[:, 4:7] = np.ascontiguousarray(node_max, np.float32).view(np.int32)
+    rec[:, 7] = 0
+    rec[leaf, 7] = leaf_reference(np.asarray(node_first)[leaf], count[leaf], bits)
+    return rec
 
 
 def bvh4_nodes(node_min: np.ndarray, node_max: np.ndarray, node_first: np.ndarray,
-               node_count: np.ndarray, miss_link: np.ndarray
+               node_count: np.ndarray, miss_link: np.ndarray, bits: int
                ) -> tuple[np.ndarray, int, np.ndarray]:
     """The CUDA trace kernel's 4-wide node layout, collapsed from the binary
     tree of the threaded arrays (in the port's C++ core, bvh_collapse4).
@@ -162,14 +210,20 @@ def bvh4_nodes(node_min: np.ndarray, node_max: np.ndarray, node_first: np.ndarra
                      lo.y[4] hi.y[4] lo.z[4] hi.z[4], the binary nodes' f32
                      values bit for bit
         words 24-27  children's references: an interior child's record
-                     index (>= 0), or a leaf's ~(first << 5 | count - 1)
-                     (< 0), [first, first + count) in the SceneArrays slot
-                     space
+                     index (>= 0), or a leaf's leaf_reference(first,
+                     count, bits) (< 0), [first, first + count) in the
+                     SceneArrays slot space
         word  28     the child count n (1-4): slots n..3 are empty (zero
                      words, never tested)
         words 29-31  zero
-    Returns ((M,32) int32 records; depth in records, the root counted as 1;
-    (M,4) int64 binary node of each child, -1 where empty). Raises
-    ValueError for leaves above 32 triangles or 2^26 slots and more."""
-    return _builder.tree_collapse4(node_min, node_max, node_first, node_count, miss_link,
-                                   LEAF_COUNT_BITS)
+    `bits` is the scene's leaf_bits(node_count). Returns ((M,32) int32
+    records; depth in records, the root counted as 1; (M,4) int32 binary
+    node of each child, -1 where empty). Raises ValueError, as
+    leaf_reference, where a leaf does not fit."""
+    count = np.asarray(node_count)
+    leaf = count > 0
+    _check_slot_space(int(np.max((np.asarray(node_first) + count)[leaf], initial=0)),
+                      int(np.max(count, initial=1)), bits)
+    rec, depth, src = _builder.tree_collapse4(node_min, node_max, node_first, node_count,
+                                              miss_link, bits)
+    return rec, depth, src.astype(np.int32)

@@ -48,13 +48,16 @@
 // (TRACE_RING + TRACE_SPILL) / 3 records.
 //
 // Layout and arithmetic: trace_math.cuh. The slab test is slab_box and the
-// Möller–Trumbore test triangle_values, triangle()'s operation order and
-// the plain version's, built with -fmad=false, so that t, u and v are
-// bit-equal with it wherever both pick the same triangle; the wide records
-// copy the binary nodes' f32 boxes bit for bit, so every slab test is the
-// plain version's on that box. An empty child slot is never tested: the
-// record's child count masks it (a sentinel box would pass CUDA's fminf,
-// see trace_math.cuh).
+// Möller–Trumbore test triangle_values, the plain version's form (XLA:CPU's
+// fused multiply-adds through __fmaf_rn, nothing else contracted), so that
+// t, u and v are bit-equal with it wherever both pick the same triangle;
+// the wide records copy the binary nodes' f32 boxes bit for bit, so every
+// slab test is the plain version's on that box. An empty child slot is
+// never tested: the record's child count masks it (a sentinel box would
+// pass CUDA's fminf, see trace_math.cuh). A leaf reference packs (first,
+// count - 1) with the scene's leaf_bits, a launch argument
+// (bvh/flatten.py:leaf_bits: the fewest bits, at least 5, that hold the
+// largest leaf).
 //
 // A third entry point, idk_trace_closest_steps, replaces K1 with
 // `debug_iters=True` (packet_trace.py:979, called from
@@ -62,17 +65,26 @@
 // per-ray count of traversal steps for the traversal-cost heatmap. The TPU
 // kernel counts loop trips per packet; the JAX package's per-ray contract
 // is its stackless trace_closest_steps (ops/trace.py:244-275), so
-// trace_steps_kernel walks the threaded arrays (node_min, node_max,
-// node_first, node_count, hit_link, miss_link) one node per step, exactly
-// as that trace does: its counts match the plain version ray by ray, which
-// a near-first stack walk would not. It is a debug kernel; its speed is
-// only recorded.
+// trace_steps_kernel walks the threaded binary tree one node per step,
+// exactly as that trace does: its counts match the plain version ray by
+// ray, which a near-first stack walk would not. The walk is a chain of
+// dependent node fetches, up to 1,123 a ray on the atrium's primaries. What
+// its design does about that (each part measured against its alternative
+// in the same process, PERF.md):
+// - one aligned 32-byte record a node (bvh/flatten.py:thread_nodes: min.xyz
+//   | miss_link | max.xyz | leaf word), two float4 loads from one sector,
+//   in place of eight scalar loads from six arrays, and one dependent round
+//   trip a step in place of two: the next node is the next record (a hit
+//   interior node) or the miss link, which arrives with the box (-21%);
+// - leaf triangles from tri_vec, three float4 loads a slot (-2%).
+// Persistent warps measured no faster here (+-1%), and loading the next
+// record before the slab test resolves 7% slower; neither is kept. One ray
+// a thread.
 
 #include <stdint.h>
 
 #include "trace_math.cuh"
 
-#define WIDE_LEAF_COUNT_BITS 5  // bvh/flatten.py:LEAF_COUNT_BITS
 #define TRACE_RING 16  // stack entries a ray keeps in shared memory (a power of 2)
 #define TRACE_SPILL 80  // older entries, in local memory
 
@@ -125,7 +137,7 @@ __device__ __forceinline__ void trace_ray(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ t_max, float* __restrict__ t_out, int* __restrict__ slot_out,
     float* __restrict__ u_out, float* __restrict__ v_out, bool* __restrict__ occ_out, int i,
-    int2* ring) {
+    int leaf_bits, int2* ring) {
   const float tmax = t_max[i];
   float t_best = tmax;
   int best_slot = -1;
@@ -162,15 +174,11 @@ __device__ __forceinline__ void trace_ray(
         }
       } else {
         const int leaf = ~code;
-        const int first = leaf >> WIDE_LEAF_COUNT_BITS;
-        const int count = (leaf & ((1 << WIDE_LEAF_COUNT_BITS) - 1)) + 1;
+        const int first = leaf >> leaf_bits;
+        const int count = (leaf & ((1 << leaf_bits) - 1)) + 1;
         for (int k = 0; k < count; ++k) {
           float t, u, v;
-          const float4* tv = tri_vec + 3 * (first + k);
-          const float4 a = __ldg(tv), b = __ldg(tv + 1), c = __ldg(tv + 2);
-          const bool hit = triangle_values(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, r,
-                                           t, u, v);
-          if (hit && t < t_best) {
+          if (triangle_vec(tri_vec, first + k, r, t, u, v) && t < t_best) {
             t_best = t;
             best_slot = first + k;
             best_u = u;
@@ -216,7 +224,8 @@ trace_kernel(const float4* __restrict__ wide, const float4* __restrict__ tri_vec
              const float* __restrict__ o, const float* __restrict__ d,
              const float* __restrict__ t_max, float* __restrict__ t_out,
              int* __restrict__ slot_out, float* __restrict__ u_out, float* __restrict__ v_out,
-             bool* __restrict__ occ_out, int* __restrict__ next_ray, int n_rays) {
+             bool* __restrict__ occ_out, int* __restrict__ next_ray, int n_rays,
+             int leaf_bits) {
   extern __shared__ int2 ring_smem[];
   int2* ring = ring_smem + threadIdx.x;
   const int lane = threadIdx.x & 31;
@@ -228,7 +237,7 @@ trace_kernel(const float4* __restrict__ wide, const float4* __restrict__ tri_vec
     const int i = base + lane;
     if (i < n_rays)
       trace_ray<ANY_HIT>(wide, tri_vec, o, d, t_max, t_out, slot_out, u_out, v_out, occ_out, i,
-                         ring);
+                         leaf_bits, ring);
     __syncwarp();
   }
 }
@@ -237,8 +246,10 @@ trace_kernel(const float4* __restrict__ wide, const float4* __restrict__ tri_vec
 template <bool ANY_HIT>
 int launch_trace(const void* wide, const void* tri_vec, const void* o, const void* d,
                  const void* t_max, void* t_out, void* slot_out, void* u_out, void* v_out,
-                 void* occ_out, void* next_ray, int n_rays, int stack_entries, void* stream) {
-  if (stack_entries < 1 || stack_entries > TRACE_RING + TRACE_SPILL)
+                 void* occ_out, void* next_ray, int n_rays, int stack_entries, int leaf_bits,
+                 void* stream) {
+  if (stack_entries < 1 || stack_entries > TRACE_RING + TRACE_SPILL || leaf_bits < 5 ||
+      leaf_bits > 30)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)TRACE_RING * TRACE_BLOCK * sizeof(int2);
   int device = 0, sms = 0, per_sm = 0;
@@ -254,24 +265,22 @@ int launch_trace(const void* wide, const void* tri_vec, const void* o, const voi
   trace_kernel<ANY_HIT><<<grid, TRACE_BLOCK, smem, (cudaStream_t)stream>>>(
       (const float4*)wide, (const float4*)tri_vec, (const float*)o, (const float*)d,
       (const float*)t_max, (float*)t_out, (int*)slot_out, (float*)u_out, (float*)v_out,
-      (bool*)occ_out, (int*)next_ray, n_rays);
+      (bool*)occ_out, (int*)next_ray, n_rays, leaf_bits);
   return (int)cudaGetLastError();
 }
 
 // One step per iteration, as ops/trace.py:_traverse: slab-test the pointed
 // node against t_best; at a hit leaf test its triangles in order with
-// strict <; follow hit_link at a hit interior node, else miss_link. Dead
-// rays run too (one step at the root), as the plain version counts them.
+// strict <; go to the next record at a hit interior node, else to the miss
+// link. Dead rays run too (one step at the root), as the plain version
+// counts them.
 __global__ void __launch_bounds__(TRACE_BLOCK)
-trace_steps_kernel(const float* __restrict__ node_min, const float* __restrict__ node_max,
-                   const int* __restrict__ node_first, const int* __restrict__ node_count,
-                   const int* __restrict__ hit_link, const int* __restrict__ miss_link,
-                   const float* __restrict__ p0, const float* __restrict__ e1,
-                   const float* __restrict__ e2, const float* __restrict__ o,
-                   const float* __restrict__ d, const float* __restrict__ t_max,
-                   float* __restrict__ t_out, int* __restrict__ slot_out,
-                   float* __restrict__ u_out, float* __restrict__ v_out,
-                   int* __restrict__ steps_out, int n_rays) {
+trace_steps_kernel(const float4* __restrict__ nodes, const float4* __restrict__ tri_vec,
+                   const float* __restrict__ o, const float* __restrict__ d,
+                   const float* __restrict__ t_max, float* __restrict__ t_out,
+                   int* __restrict__ slot_out, float* __restrict__ u_out,
+                   float* __restrict__ v_out, int* __restrict__ steps_out, int n_rays,
+                   int leaf_bits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const Ray r = load_ray(o, d, i);
@@ -279,19 +288,19 @@ trace_steps_kernel(const float* __restrict__ node_min, const float* __restrict__
   int best_slot = -1, steps = 0;
   float best_u = 0.0f, best_v = 0.0f;
   int ptr = 0;
-  while (ptr >= 0) {
+  float4 a = __ldg(nodes), b = __ldg(nodes + 1);  // min.xyz | miss, max.xyz | leaf word
+  for (;;) {
     ++steps;
-    const float* lo = node_min + 3 * ptr;
-    const float* hi = node_max + 3 * ptr;
     float tn;
-    const bool hit = slab_box(__ldg(lo), __ldg(lo + 1), __ldg(lo + 2), __ldg(hi),
-                              __ldg(hi + 1), __ldg(hi + 2), r, t_best, tn);
-    const int count = __ldg(node_count + ptr);
-    if (hit && count > 0) {
-      const int first = __ldg(node_first + ptr);
+    const bool hit = slab_box(a.x, a.y, a.z, b.x, b.y, b.z, r, t_best, tn);
+    const int word = __float_as_int(b.w);
+    if (hit && word < 0) {
+      const int leaf = ~word;
+      const int first = leaf >> leaf_bits;
+      const int count = (leaf & ((1 << leaf_bits) - 1)) + 1;
       for (int k = 0; k < count; ++k) {
         float t, u, v;
-        if (triangle(p0, e1, e2, first + k, r, t, u, v) && t < t_best) {
+        if (triangle_vec(tri_vec, first + k, r, t, u, v) && t < t_best) {
           t_best = t;
           best_slot = first + k;
           best_u = u;
@@ -299,7 +308,11 @@ trace_steps_kernel(const float* __restrict__ node_min, const float* __restrict__
         }
       }
     }
-    ptr = (hit && count == 0) ? __ldg(hit_link + ptr) : __ldg(miss_link + ptr);
+    const int next = (hit && word == 0) ? ptr + 1 : __float_as_int(a.w);
+    if (next < 0) break;
+    a = __ldg(nodes + 2 * next);
+    b = __ldg(nodes + 2 * next + 1);
+    ptr = next;
   }
   t_out[i] = t_best;
   slot_out[i] = best_slot;
@@ -312,9 +325,12 @@ trace_steps_kernel(const float* __restrict__ node_min, const float* __restrict__
 
 extern "C" {
 
-// The binary node layout's stack bound of phase A (two_phase.cu), whose
-// wrapper checks it through this library.
-int idk_trace_stack_size() { return TRACE_STACK_SIZE; }
+// The interface of this library, for scripts that bind several versions
+// (trace_ab.py): 3 = the wide tables with a leaf_bits argument and the
+// threaded records of the steps kernel. Libraries without this function
+// are older: with idk_trace_stack_limit the wide tables with 5 count bits,
+// without it the binary records.
+int idk_trace_interface() { return 3; }
 
 // The most stack entries a ray can hold (3 per record level of the tree).
 int idk_trace_stack_limit() { return TRACE_RING + TRACE_SPILL; }
@@ -325,40 +341,39 @@ int idk_trace_shared_bytes() { return TRACE_RING * TRACE_BLOCK * (int)sizeof(int
 // Closest hit per ray over the 4-wide records `wide` ((M,32) i32) and the
 // leaf table tri_vec ((T,12) f32). All pointers are device pointers;
 // outputs are (n_rays,) f32 t, i32 slot, f32 u, f32 v. `next_ray` is one
-// zeroed i32; `stack_entries` the tree's stack depth (3 per record level).
+// zeroed i32; `stack_entries` the tree's stack depth (3 per record level);
+// `leaf_bits` the count bits of a leaf reference (5-30).
 // Returns cudaGetLastError().
 int idk_trace_closest(const void* wide, const void* tri_vec, const void* o, const void* d,
                       const void* t_max, void* t_out, void* slot_out, void* u_out, void* v_out,
-                      void* next_ray, int n_rays, int stack_entries, void* stream) {
+                      void* next_ray, int n_rays, int stack_entries, int leaf_bits,
+                      void* stream) {
   return launch_trace<false>(wide, tri_vec, o, d, t_max, t_out, slot_out, u_out, v_out,
-                             nullptr, next_ray, n_rays, stack_entries, stream);
+                             nullptr, next_ray, n_rays, stack_entries, leaf_bits, stream);
 }
 
 // Occlusion per ray: occ_out (n_rays,) bool, true where a triangle lies at
 // 0 < t < t_max. Returns cudaGetLastError().
 int idk_trace_any(const void* wide, const void* tri_vec, const void* o, const void* d,
                   const void* t_max, void* occ_out, void* next_ray, int n_rays,
-                  int stack_entries, void* stream) {
+                  int stack_entries, int leaf_bits, void* stream) {
   return launch_trace<true>(wide, tri_vec, o, d, t_max, nullptr, nullptr, nullptr, nullptr,
-                            occ_out, next_ray, n_rays, stack_entries, stream);
+                            occ_out, next_ray, n_rays, stack_entries, leaf_bits, stream);
 }
 
-// Closest hit and traversal steps per ray over the threaded arrays
-// (node_min/node_max (N,3) f32, node_first/node_count/hit_link/miss_link
-// (N,) i32). Outputs (n_rays,) f32 t, i32 slot, f32 u, f32 v, i32 steps.
-// Returns cudaGetLastError().
-int idk_trace_closest_steps(const void* node_min, const void* node_max,
-                            const void* node_first, const void* node_count,
-                            const void* hit_link, const void* miss_link, const void* p0,
-                            const void* e1, const void* e2, const void* o, const void* d,
-                            const void* t_max, void* t_out, void* slot_out, void* u_out,
-                            void* v_out, void* steps_out, int n_rays, void* stream) {
+// Closest hit and traversal steps per ray over the threaded records
+// `nodes` ((N,8) i32, bvh/flatten.py:thread_nodes) and tri_vec. Outputs
+// (n_rays,) f32 t, i32 slot, f32 u, f32 v, i32 steps. Returns
+// cudaGetLastError().
+int idk_trace_closest_steps(const void* nodes, const void* tri_vec, const void* o,
+                            const void* d, const void* t_max, void* t_out, void* slot_out,
+                            void* u_out, void* v_out, void* steps_out, int n_rays,
+                            int leaf_bits, void* stream) {
+  if (leaf_bits < 5 || leaf_bits > 30) return (int)cudaErrorInvalidValue;
   trace_steps_kernel<<<grid_for(n_rays), TRACE_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float*)node_min, (const float*)node_max, (const int*)node_first,
-      (const int*)node_count, (const int*)hit_link, (const int*)miss_link,
-      (const float*)p0, (const float*)e1, (const float*)e2, (const float*)o,
-      (const float*)d, (const float*)t_max, (float*)t_out, (int*)slot_out,
-      (float*)u_out, (float*)v_out, (int*)steps_out, n_rays);
+      (const float4*)nodes, (const float4*)tri_vec, (const float*)o, (const float*)d,
+      (const float*)t_max, (float*)t_out, (int*)slot_out, (float*)u_out, (float*)v_out,
+      (int*)steps_out, n_rays, leaf_bits);
   return (int)cudaGetLastError();
 }
 

@@ -19,21 +19,29 @@
 // the plain version in DFS order. A dead ray (t_max < 0) gets cnt 0. Lists
 // are (R, D) row-major, -1 past the recorded entries. The stack holds
 // pending far interior children, at most depth-1 of them; the wrapper
-// refuses a tree deeper than TRACE_STACK_SIZE + 1, as for trace.cu.
+// refuses a tree deeper than TRACE_STACK_SIZE + 1.
 //
 // Phase B (phase_b_kernel) tests each ray's listed leaves: at most D leaves
-// of at most max_leaf triangles, Möller–Trumbore in trace.cu's operation
-// order, strict t < t_best over the list in order, so the earlier entry wins
-// a tie (the JAX package's argmin rule; two_phase.py:400-473 computes it in
-// XLA, so it is no TPU kernel). Its plain version phase_b_closest_plain is
-// its oracle: t, u and v are bit-equal (-fmad=false).
+// of at most max_leaf triangles, Möller–Trumbore in trace.cu's arithmetic
+// (trace_math.cuh), strict t < t_best over the list in order, so the
+// earlier entry wins a tie (the JAX package's argmin rule;
+// two_phase.py:400-473 computes it in XLA, so it is no TPU kernel). Its
+// plain version phase_b_closest_plain is its oracle: t, u and v are
+// bit-equal.
 //
 // What bounds them: phase A is the traversal's dependent node fetches
 // without the leaf tests; it prunes only by t_max, never by a hit, so a
 // primary ray wants many more leaves than D and overflows into the one-phase
 // fallback. Phase B reads up to D * max_leaf triangles per ray in scattered
-// 36-byte gathers. This first design keeps both simple; the fallback is one
-// trace.cu launch on all rays (non-overflow rays carry t_max = -1).
+// 36-byte gathers; the fallback is one trace.cu launch on all rays
+// (non-overflow rays carry t_max = -1). Phase A over trace.cu's 4-wide
+// table (14 record levels against 24, the leaf ids from
+// SceneArrays.bvh4_child) was measured in eleven forms, with and without
+// persistent warps, a shared ring, near-first order and an eager child-map
+// load, and so was this walk with persistent warps: none was faster on
+// the primaries, the shadow rays and the bounce batch together (the best
+// wide form -7% on the primaries, +4% and +9% on the others; PERF.md), so
+// this binary walk, one ray a thread, stays.
 
 #include "trace_math.cuh"
 
@@ -154,6 +162,9 @@ phase_b_kernel(const int* __restrict__ node_first, const int* __restrict__ node_
 }  // namespace
 
 extern "C" {
+
+// The binary layout's stack bound of phase A.
+int idk_phase_a_stack_size() { return TRACE_STACK_SIZE; }
 
 // Phase A: lists (n_rays, d_slots) i32 leaf node ids | -1, cnt (n_rays,)
 // i32. All pointers are device pointers. Returns cudaGetLastError().

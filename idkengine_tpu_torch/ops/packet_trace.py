@@ -8,9 +8,10 @@ unrolled) entry points answer, over one whole-scene BVH: the kernel
 `csrc/trace.cu` (a 4-wide tree, `SceneArrays.bvh4_nodes`) replaces the three
 TPU kernels K1, K2 and K4 (see its header). `trace_closest_steps` adds
 per-ray traversal steps for the debug heatmap (K1 with `debug_iters`), over
-the threaded arrays. The kernels are compiled with nvcc on first use into
-`build/` and bound with ctypes. A CUDA tensor reaches the kernel or the call
-raises; the plain version runs only for tensors on the CPU.
+the threaded records `SceneArrays.bvh_thread`. The kernels are compiled
+with nvcc on first use into `build/` and bound with ctypes. A CUDA tensor
+reaches the kernel or the call raises; the plain version runs only for
+tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -45,15 +46,15 @@ def bind_library(path: str) -> ctypes.CDLL:
     """Load a library built from csrc/trace.cu and declare its entry points."""
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.idk_trace_stack_size, lib.idk_trace_stack_limit, lib.idk_trace_shared_bytes):
+    for fn in (lib.idk_trace_interface, lib.idk_trace_stack_limit, lib.idk_trace_shared_bytes):
         fn.restype = ci
         fn.argtypes = []
     lib.idk_trace_closest.restype = ci
-    lib.idk_trace_closest.argtypes = [vp] * 10 + [ci, ci, vp]
+    lib.idk_trace_closest.argtypes = [vp] * 10 + [ci, ci, ci, vp]
     lib.idk_trace_any.restype = ci
-    lib.idk_trace_any.argtypes = [vp] * 7 + [ci, ci, vp]
+    lib.idk_trace_any.argtypes = [vp] * 7 + [ci, ci, ci, vp]
     lib.idk_trace_closest_steps.restype = ci
-    lib.idk_trace_closest_steps.argtypes = [vp] * 17 + [ci, vp]
+    lib.idk_trace_closest_steps.argtypes = [vp] * 10 + [ci, ci, vp]
     return lib
 
 
@@ -90,24 +91,6 @@ def _check_rays(o, d, t_max) -> torch.Tensor:
     return t_max
 
 
-def _check_inputs(scene: SceneArrays, o, d, t_max) -> torch.Tensor:
-    """Validate the inputs of a kernel over the binary layout (the steps
-    kernel, phase A and B); returns t_max as an (R,) float32 tensor."""
-    t_max = _check_rays(o, d, t_max)
-    f32 = torch.float32
-    _check_tensors(o.device, {"bvh_nodes": (scene.bvh_nodes, torch.int32),
-                              "tri_p0": (scene.tri_p0, f32), "tri_e1": (scene.tri_e1, f32),
-                              "tri_e2": (scene.tri_e2, f32)})
-    if scene.bvh_nodes.dim() != 2 or scene.bvh_nodes.shape[1] != 8:
-        raise ValueError("bvh_nodes must be (N,8) int32 records")
-    lib = _load()
-    if scene.bvh_depth - 1 > lib.idk_trace_stack_size():
-        raise ValueError(
-            f"BVH depth {scene.bvh_depth} needs a traversal stack of "
-            f"{scene.bvh_depth - 1}; the kernel holds {lib.idk_trace_stack_size()}")
-    return t_max
-
-
 def wide_stack_entries(scene: SceneArrays) -> int:
     """The trace kernel's stack depth for the scene's wide tree: a record
     pushes at most 3 of its 4 children, so 3 entries per record level.
@@ -120,20 +103,37 @@ def wide_stack_entries(scene: SceneArrays) -> int:
     return entries
 
 
+def _check_tri_vec(scene: SceneArrays, dev):
+    _check_tensors(dev, {"tri_vec": (scene.tri_vec, torch.float32)})
+    if scene.tri_vec.shape != (scene.tri_p0.shape[0], 12) or scene.tri_vec.data_ptr() % 16:
+        raise ValueError("tri_vec must be (T,12) float32, 16-byte aligned")
+    if not 5 <= scene.bvh4_leaf_bits <= 30:
+        raise ValueError(f"bvh4_leaf_bits must lie in 5..30, got {scene.bvh4_leaf_bits}")
+
+
 def _check_wide(scene: SceneArrays, o, d, t_max) -> tuple[torch.Tensor, int]:
     """Validate the trace kernel's inputs; returns (t_max as an (R,) float32
     tensor, stack entries). Raises where the wide tree is too deep for the
     kernel's stack."""
     t_max = _check_rays(o, d, t_max)
-    f32 = torch.float32
-    _check_tensors(o.device, {"bvh4_nodes": (scene.bvh4_nodes, torch.int32),
-                              "tri_vec": (scene.tri_vec, f32)})
+    _check_tensors(o.device, {"bvh4_nodes": (scene.bvh4_nodes, torch.int32)})
     w = scene.bvh4_nodes
     if w.dim() != 2 or w.shape[1] != 32 or w.shape[0] < 1 or w.data_ptr() % 128:
         raise ValueError("bvh4_nodes must be (M,32) int32 records, 128-byte aligned")
-    if scene.tri_vec.shape != (scene.tri_p0.shape[0], 12):
-        raise ValueError("tri_vec must be (T,12) float32")
+    _check_tri_vec(scene, o.device)
     return t_max, wide_stack_entries(scene)
+
+
+def _check_thread(scene: SceneArrays, o, d, t_max) -> torch.Tensor:
+    """Validate the steps kernel's inputs; returns t_max as an (R,) float32
+    tensor."""
+    t_max = _check_rays(o, d, t_max)
+    _check_tensors(o.device, {"bvh_thread": (scene.bvh_thread, torch.int32)})
+    n = scene.bvh_thread
+    if n.dim() != 2 or n.shape[1] != 8 or n.shape[0] < 1 or n.data_ptr() % 32:
+        raise ValueError("bvh_thread must be (N,8) int32 records, 32-byte aligned")
+    _check_tri_vec(scene, o.device)
+    return t_max
 
 
 def _on_cpu(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor) -> bool:
@@ -176,7 +176,7 @@ def trace_closest(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max) -
         stream = torch.cuda.current_stream(o.device).cuda_stream
         err = _load().idk_trace_closest(
             *_wide_tables(scene), _ptr(o), _ptr(d), _ptr(t_max), _ptr(t),
-            _ptr(slot), _ptr(u), _ptr(v), _ptr(next_ray), r, entries,
+            _ptr(slot), _ptr(u), _ptr(v), _ptr(next_ray), r, entries, scene.bvh4_leaf_bits,
             ctypes.c_void_p(stream))
         _raise_on(err, "trace_closest")
         trace_closest.launches += 1
@@ -196,7 +196,7 @@ def trace_any(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max) -> to
         stream = torch.cuda.current_stream(o.device).cuda_stream
         err = _load().idk_trace_any(
             *_wide_tables(scene), _ptr(o), _ptr(d), _ptr(t_max), _ptr(occ), _ptr(next_ray),
-            r, entries, ctypes.c_void_p(stream))
+            r, entries, scene.bvh4_leaf_bits, ctypes.c_void_p(stream))
         _raise_on(err, "trace_any")
         trace_any.launches += 1
     return occ
@@ -208,14 +208,7 @@ def trace_closest_steps(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor,
     the stackless walk of ops/trace.py counts them (one node per step)."""
     if _on_cpu(scene, o, d):
         return _plain.trace_closest_steps(scene, o, d, t_max)
-    t_max = _check_inputs(scene, o, d, t_max)
-    threaded = {"node_min": (scene.node_min, torch.float32),
-                "node_max": (scene.node_max, torch.float32),
-                **{k: (getattr(scene, k), torch.int32)
-                   for k in ("node_first", "node_count", "hit_link", "miss_link")}}
-    for name, (x, dtype) in threaded.items():
-        if x.device != o.device or not x.is_contiguous() or x.dtype != dtype:
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {o.device}")
+    t_max = _check_thread(scene, o, d, t_max)
     r = o.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=o.device)
     slot = torch.empty(r, dtype=torch.int32, device=o.device)
@@ -225,9 +218,8 @@ def trace_closest_steps(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor,
     if r:
         stream = torch.cuda.current_stream(o.device).cuda_stream
         err = _load().idk_trace_closest_steps(
-            *(_ptr(x) for x, _ in threaded.values()), _ptr(scene.tri_p0),
-            _ptr(scene.tri_e1), _ptr(scene.tri_e2), _ptr(o), _ptr(d), _ptr(t_max),
-            _ptr(t), _ptr(slot), _ptr(u), _ptr(v), _ptr(steps), r,
+            _ptr(scene.bvh_thread), _ptr(scene.tri_vec), _ptr(o), _ptr(d), _ptr(t_max), _ptr(t),
+            _ptr(slot), _ptr(u), _ptr(v), _ptr(steps), r, scene.bvh4_leaf_bits,
             ctypes.c_void_p(stream))
         _raise_on(err, "trace_closest_steps")
         trace_closest_steps.launches += 1

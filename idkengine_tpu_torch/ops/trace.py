@@ -21,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..bvh.flatten import FlatBvh, FlatTriangles, bvh2_nodes, bvh4_nodes
+from ..bvh.flatten import FlatBvh, FlatTriangles, bvh2_nodes, bvh4_nodes, leaf_bits, thread_nodes
 from .intersect import INF, ray_aabb, ray_triangle
 
 DEFAULT_MAX_LEAF = 4  # default for bvh.BuildSettings.max_leaf_triangle_count
@@ -36,11 +36,15 @@ JAX_FIELDS = ("node_min", "node_max", "node_first", "node_count", "hit_link",
 class SceneArrays:
     """Device-resident flattened scene (single merged BLAS).
 
-    The threaded arrays serve the plain trace; `bvh_nodes` is the same tree
-    in the binary layout of the two-phase kernels
-    (bvh/flatten.py:bvh2_nodes), `bvh4_nodes` collapsed into the trace
-    kernel's 4-wide layout (bvh/flatten.py:bvh4_nodes), and `tri_vec` the
-    triangles as the trace kernel loads them (three float4s a slot)."""
+    The threaded arrays serve the plain trace; `bvh_thread` holds them as
+    the steps kernel's 32-byte records (bvh/flatten.py:thread_nodes) and
+    `bvh_nodes` as phase A's binary records (bvh/flatten.py:bvh2_nodes);
+    `bvh4_nodes` is the tree collapsed into the trace kernel's 4-wide
+    layout (bvh/flatten.py:bvh4_nodes), `bvh4_child` the binary node each
+    wide child copies (what a refit of the wide records gathers from),
+    `bvh4_leaf_bits` the split of the leaf references of both the wide and
+    the threaded records (bvh/flatten.py:leaf_bits), and `tri_vec` the
+    triangles as the kernels load them (three float4s a slot)."""
 
     node_min: torch.Tensor  # (N,3) f32
     node_max: torch.Tensor  # (N,3) f32
@@ -55,13 +59,17 @@ class SceneArrays:
     tri_uv: torch.Tensor  # (T,3,2) f32
     tri_mat: torch.Tensor  # (T,) i32
     tri_gn: torch.Tensor  # (T,3) f32 face normal
-    bvh_nodes: torch.Tensor  # (N,8) i32 kernel node records
+    bvh_nodes: torch.Tensor  # (N,8) i32 phase A's binary node records
     bvh_depth: int  # tree depth, root = 1
+    bvh_thread: torch.Tensor  # (N,8) i32 steps kernel's threaded records
     bvh4_nodes: torch.Tensor  # (M,32) i32 trace kernel's 4-wide records
     bvh4_depth: int  # wide tree depth in records, root = 1
-    tri_vec: torch.Tensor  # (T,12) f32 p0 | e1 | e2 | pad, the trace kernel's leaf loads
+    bvh4_child: torch.Tensor  # (M,4) i32 binary node of each wide child, -1 empty
+    bvh4_leaf_bits: int  # count bits of a leaf reference (bvh/flatten.py:leaf_bits)
+    tri_vec: torch.Tensor  # (T,12) f32 p0 | e1 | e2 | pad, the kernels' leaf loads
     max_leaf: int = DEFAULT_MAX_LEAF
     bvh4_build_ms: float = 0.0  # host time of bvh4_nodes
+    thread_build_ms: float = 0.0  # host time of thread_nodes
 
     @property
     def device(self) -> torch.device:
@@ -86,10 +94,15 @@ def from_jax_scene_arrays(arrays: dict, max_leaf: int, device) -> SceneArrays:
     a = {k: np.asarray(arrays[k]) for k in JAX_FIELDS}
     nodes, depth = bvh2_nodes(a["node_min"], a["node_max"], a["node_first"],
                               a["node_count"], a["miss_link"])
+    bits = leaf_bits(a["node_count"])
     t0 = time.perf_counter()
-    wide, wide_depth, _ = bvh4_nodes(a["node_min"], a["node_max"], a["node_first"],
-                                     a["node_count"], a["miss_link"])
+    wide, wide_depth, child = bvh4_nodes(a["node_min"], a["node_max"], a["node_first"],
+                                         a["node_count"], a["miss_link"], bits)
     wide_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    threaded = thread_nodes(a["node_min"], a["node_max"], a["node_first"], a["node_count"],
+                            a["miss_link"], bits)
+    thread_ms = (time.perf_counter() - t0) * 1e3
     tri = [np.asarray(a[k], np.float32).reshape(-1, 3) for k in ("tri_p0", "tri_e1", "tri_e2")]
     tri_vec = np.concatenate([*tri, np.zeros_like(tri[0])], axis=1)
     dtypes = {"node_first": np.int32, "node_count": np.int32, "hit_link": np.int32,
@@ -101,9 +114,10 @@ def from_jax_scene_arrays(arrays: dict, max_leaf: int, device) -> SceneArrays:
 
     return SceneArrays(
         **{k: put(a[k], dtypes.get(k, np.float32)) for k in JAX_FIELDS},
-        bvh_nodes=put(nodes, np.int32), bvh_depth=depth, bvh4_nodes=put(wide, np.int32),
-        bvh4_depth=wide_depth, tri_vec=put(tri_vec), max_leaf=int(max_leaf),
-        bvh4_build_ms=wide_ms)
+        bvh_nodes=put(nodes, np.int32), bvh_depth=depth, bvh_thread=put(threaded, np.int32),
+        bvh4_nodes=put(wide, np.int32), bvh4_depth=wide_depth, bvh4_child=put(child, np.int32),
+        bvh4_leaf_bits=bits, tri_vec=put(tri_vec), max_leaf=int(max_leaf),
+        bvh4_build_ms=wide_ms, thread_build_ms=thread_ms)
 
 
 class Hit(NamedTuple):

@@ -46,6 +46,8 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build_kernels()[0])
         vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.idk_phase_a_stack_size.restype = ci
+        lib.idk_phase_a_stack_size.argtypes = []
         lib.idk_phase_a.restype = ci
         lib.idk_phase_a.argtypes = [vp] * 6 + [ci, ci, vp]
         lib.idk_phase_b_closest.restype = ci
@@ -61,15 +63,32 @@ def _t_max(o: torch.Tensor, t_max) -> torch.Tensor:
     return torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(r).contiguous()
 
 
-def _check_lists(scene: SceneArrays, lists: torch.Tensor, r: int):
+def _check_phase_a(scene: SceneArrays, o, d, t_max) -> torch.Tensor:
+    """Validate phase A's inputs; returns t_max as an (R,) float32 tensor.
+    Raises where the tree is too deep for the kernel's stack."""
+    t_max = _pt._check_rays(o, d, t_max)
+    _pt._check_tensors(o.device, {"bvh_nodes": (scene.bvh_nodes, torch.int32)})
+    if scene.bvh_nodes.dim() != 2 or scene.bvh_nodes.shape[1] != 8:
+        raise ValueError("bvh_nodes must be (N,8) int32 records")
+    limit = _load().idk_phase_a_stack_size()
+    if scene.bvh_depth - 1 > limit:
+        raise ValueError(f"BVH depth {scene.bvh_depth} needs a traversal stack of "
+                         f"{scene.bvh_depth - 1}; the kernel holds {limit}")
+    return t_max
+
+
+def _check_phase_b(scene: SceneArrays, lists: torch.Tensor, o, d, t_max) -> torch.Tensor:
+    """Validate phase B's inputs; returns t_max as an (R,) float32 tensor."""
+    t_max = _pt._check_rays(o, d, t_max)
+    r = o.shape[0]
     if lists.dim() != 2 or lists.shape[0] != r:
         raise ValueError(f"lists must be (R, D) for R={r} rays, got {tuple(lists.shape)}")
-    if lists.dtype != torch.int32 or not lists.is_contiguous():
-        raise TypeError("lists must be a contiguous int32 tensor")
-    for name in ("node_first", "node_count"):
-        x = getattr(scene, name)
-        if x.device != lists.device or x.dtype != torch.int32 or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int32 tensor on {lists.device}")
+    i32, f32 = torch.int32, torch.float32
+    _pt._check_tensors(o.device, {"lists": (lists, i32), "node_first": (scene.node_first, i32),
+                                  "node_count": (scene.node_count, i32),
+                                  "tri_p0": (scene.tri_p0, f32), "tri_e1": (scene.tri_e1, f32),
+                                  "tri_e2": (scene.tri_e2, f32)})
+    return t_max
 
 
 def _stream(o: torch.Tensor) -> ctypes.c_void_p:
@@ -161,7 +180,7 @@ def phase_a(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
     ray (cnt 0)."""
     if _pt._on_cpu(scene, o, d):
         return phase_a_plain(scene, o, d, t_max, d_slots)
-    t_max = _pt._check_inputs(scene, o, d, t_max)
+    t_max = _check_phase_a(scene, o, d, t_max)
     if d_slots < 1:
         raise ValueError(f"d_slots must be positive, got {d_slots}")
     r = o.shape[0]
@@ -181,9 +200,8 @@ def phase_b_closest(scene: SceneArrays, lists: torch.Tensor, o: torch.Tensor,
     """Closest hit over each ray's listed leaves (see phase_b_closest_plain)."""
     if _pt._on_cpu(scene, o, d):
         return phase_b_closest_plain(scene, lists, o, d, t_max)
-    t_max = _pt._check_inputs(scene, o, d, t_max)
+    t_max = _check_phase_b(scene, lists, o, d, t_max)
     r = o.shape[0]
-    _check_lists(scene, lists, r)
     t = torch.empty(r, dtype=torch.float32, device=o.device)
     slot = torch.empty(r, dtype=torch.int32, device=o.device)
     u = torch.empty_like(t)
@@ -204,9 +222,8 @@ def phase_b_any(scene: SceneArrays, lists: torch.Tensor, o: torch.Tensor,
     """Occlusion over each ray's listed leaves, bool (R,)."""
     if _pt._on_cpu(scene, o, d):
         return phase_b_any_plain(scene, lists, o, d, t_max)
-    t_max = _pt._check_inputs(scene, o, d, t_max)
+    t_max = _check_phase_b(scene, lists, o, d, t_max)
     r = o.shape[0]
-    _check_lists(scene, lists, r)
     occ = torch.empty(r, dtype=torch.bool, device=o.device)
     if r:
         err = _load().idk_phase_b_any(

@@ -7,8 +7,9 @@ the atomics, so the kernel equals its plain version exactly.
 
 Traversal (one-phase, two-phase and the steps kernel):
 the kernel is built with -fmad=false and performs the plain version's float
-operations in the same order, so t, u and v agree bit for bit wherever both
-pick the same triangle. Slots may differ only at ties (two triangles at the
+operations in the same order, its fused multiply-adds as __fmaf_rn where
+the plain version rounds them once, so t, u and v agree bit for bit
+wherever both pick the same triangle. Slots may differ only at ties (two triangles at the
 same t, met in another order: the kernel visits near children first, the
 plain version in DFS order), on at most 0.1% of rays. Phase A's count of
 wanted leaves does not depend on the visiting order, so it is equal on
@@ -21,7 +22,9 @@ SLOT_AGREE of the rays, but not the share of equal slots: there the
 Möller–Trumbore t of a triangle carries errors of thousands of units (s =
 o - p0 is 1e8 long), many hits tie, and a triangle's t can fall far below
 its own box's entry distance, so which hit a closest query keeps depends
-on which boxes it culled first (see test_torch_wide_bvh.py).
+on which boxes it culled first (see test_torch_wide_bvh.py). The steps
+kernel walks the threaded tree in the plain version's order, so it equals
+it on every ray, from 1e8 too.
 """
 import numpy as np
 import pytest
@@ -382,6 +385,123 @@ def test_two_phase_refuses_bad_inputs(dev, scenes):
         tp.phase_a(sc, o, d, 1.0, 0)
     with pytest.raises(ValueError):
         tp.phase_a(sc, o.cpu(), d, 1.0)
+
+
+def test_fma_on_card_rounds_once(dev):
+    """ops/intersect.fma on CUDA tensors is a*b + c rounded once, against
+    exact rational arithmetic, on random and cancelling triples (where the
+    two roundings differ): the card's plain versions round as the kernels'
+    __fmaf_rn."""
+    from fractions import Fraction
+
+    from idkengine_tpu_torch.ops.intersect import fma
+
+    rng = np.random.default_rng(36)
+    n = 4096
+    a = rng.standard_normal(n).astype(np.float32) * np.float32(1e4)
+    b = rng.standard_normal(n).astype(np.float32)
+    c = rng.standard_normal(n).astype(np.float32) * np.float32(1e4)
+    c[::2] = -(a[::2] * b[::2])
+    c[1::4] = np.nextafter(c[1::4], np.float32(0))
+    got = fma(*(torch.from_numpy(x).to(dev) for x in (a, b, c))).cpu().numpy()
+    for x, y, z, g in zip(a, b, c, got):
+        exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        f = np.float32(float(exact))
+        near = min((np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))),
+                   key=lambda v: (abs(Fraction(float(v)) - exact),
+                                  int(np.asarray(v).view(np.int32)) & 1))
+        assert g == near, (x, y, z)
+    assert not np.array_equal(got, a * b + c)
+
+
+def _steps_equal(sc, o, d, t_max):
+    got, steps = kern.trace_closest_steps(sc, o, d, t_max)
+    want, want_steps = plain.trace_closest_steps(sc, o, d, t_max)
+    assert torch.equal(steps, want_steps)
+    for k in ("t", "slot", "u", "v"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    return steps
+
+
+@pytest.mark.parametrize("kind", ["incoherent", "dead_and_zero", "inside_leaves", "from_1e8"])
+def test_steps_kernel_on_ray_kinds(dev, scenes, kind):
+    """The threaded-record steps kernel against the plain stackless walk:
+    steps, t, slot, u and v equal on every ray; a dead ray takes one step."""
+    _, sc, _ = scenes
+    o, d, t_max = _rays_of(kind, sc, 1 << 16, 31, dev)
+    d[::97] = 0.0  # zero directions among them
+    steps = _steps_equal(sc, o, d, t_max)
+    assert (steps[t_max < 0] == 1).all()
+
+
+@pytest.mark.parametrize("n", [1, 5, 33, 1 << 20])
+def test_steps_kernel_batch_sizes(dev, scenes, n):
+    _, sc, _ = scenes
+    _steps_equal(sc, *_rays_of("dead_and_zero", sc, n, 32, dev))
+
+
+def _phase_a_equal(sc, o, d, t_max, d_slots):
+    """cnt equal on every ray, -1 after min(cnt, D) entries, the same sets
+    where cnt <= D; on overflow every recorded id lies in the ray's full
+    plain list. Returns cnt."""
+    from idkengine_tpu_torch.ops import two_phase as tp
+
+    lists, cnt = tp.phase_a(sc, o, d, t_max, d_slots)
+    p_lists, p_cnt = tp.phase_a_plain(sc, o, d, t_max, d_slots)
+    assert torch.equal(cnt, p_cnt)
+    assert torch.equal((lists >= 0).sum(1), torch.clamp(cnt, max=d_slots))
+    assert not ((lists[:, 1:] >= 0) & (lists[:, :-1] < 0)).any()
+    fine = cnt <= d_slots
+    assert torch.equal(_list_sets(lists[fine]), _list_sets(p_lists[fine]))
+    over = torch.nonzero(~fine)[:, 0][:512]
+    if over.numel():
+        full, _ = tp.phase_a_plain(sc, o[over], d[over], t_max[over], int(cnt[over].max()))
+        for got, want in zip(lists[over].tolist(), full.tolist()):
+            assert set(got) <= set(want)
+    return cnt
+
+
+@pytest.mark.parametrize("kind", ["incoherent", "dead_and_zero", "inside_leaves", "from_1e8"])
+def test_phase_a_kernel_on_ray_kinds(dev, scenes, kind):
+    """The wide phase A against the plain binary DFS (see _phase_a_equal);
+    dead rays get cnt 0."""
+    _, sc, _ = scenes
+    o, d, t_max = _rays_of(kind, sc, 1 << 16, 33, dev)
+    d[::97] = 0.0
+    cnt = _phase_a_equal(sc, o, d, t_max, 8)
+    assert (cnt[t_max < 0] == 0).all()
+
+
+@pytest.mark.parametrize("n", [1, 5, 33, 1 << 20])
+def test_phase_a_kernel_batch_sizes(dev, scenes, n):
+    _, sc, _ = scenes
+    _phase_a_equal(sc, *_rays_of("dead_and_zero", sc, n, 34, dev), 8)
+
+
+def test_large_leaves_on_card(dev):
+    """A build with leaves above 32 triangles (6 count bits): the trace
+    kernel, the steps kernel and phase A against their plain versions."""
+    from idkengine_tpu_torch.ops import two_phase as tp
+
+    db = SceneDatabase(BuildSettings(max_leaf_triangle_count=64, traversal_cost=40.0))
+    db.add_model(atrium(20_000))
+    sc = db.build(dev)
+    assert int(sc.node_count.max()) > 32 and sc.bvh4_leaf_bits >= 6
+    o, d, t_max = _rays_of("dead_and_zero", sc, 1 << 15, 35, dev)
+    got = kern.trace_closest(sc, o, d, t_max)
+    want = plain.trace_closest(sc, o, d, t_max)
+    assert torch.equal(got.slot >= 0, want.slot >= 0)
+    same = got.slot == want.slot
+    assert same.float().mean().item() >= SLOT_AGREE
+    assert torch.equal(got.t[same], want.t[same])
+    assert torch.equal(kern.trace_any(sc, o, d, t_max), plain.trace_any(sc, o, d, t_max))
+    _steps_equal(sc, o, d, t_max)
+    _phase_a_equal(sc, o, d, t_max, 8)
+    lists, _ = tp.phase_a(sc, o, d, t_max, 8)
+    hb = tp.phase_b_closest(sc, lists, o, d, t_max)
+    want_b = tp.phase_b_closest_plain(sc, lists, o, d, t_max)
+    for k in ("t", "slot", "u", "v"):
+        assert torch.equal(getattr(hb, k), getattr(want_b, k)), k
 
 
 def test_steps_kernel_matches_plain(dev, scenes):

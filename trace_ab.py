@@ -1,26 +1,41 @@
 #!/usr/bin/env python3
-"""Time trace kernels built from several sources on the main path's ray
+"""Time traversal kernels built from several sources on the main path's ray
 batches, in turns, on one CUDA card.
 
     python3 trace_ab.py LABEL=SOURCE[@FLAGS] [LABEL=SOURCE[@FLAGS] ...] [--reps N]
+                        [--kinds trace steps phase_a]
 
-Each SOURCE is a trace.cu (the trace_math.cuh it includes is looked up
-beside it), built with the port's nvcc flags plus FLAGS (space-separated,
-for example "-DX=1") into build/libidk_trace_ab_<LABEL>.so; the compilers
-run together. A library that exports `idk_trace_stack_limit` is called
-through ops/packet_trace.py's wrappers (the 4-wide tables); one that does
-not, through the binary layout's interface (`bvh_nodes` records, the
-kernel of csrc/trace.cu before the 4-wide tree).
+Each SOURCE is a trace.cu or a two_phase.cu (the trace_math.cuh it includes
+is looked up beside it), built with the port's nvcc flags plus FLAGS
+(space-separated, for example "-DSTEPS_PREFETCH=1") into
+build/libidk_trace_ab_<LABEL>.so; the compilers run together. A library's
+interface is read from what it exports:
+- a trace.cu with `idk_trace_interface` is called through
+  ops/packet_trace.py's wrappers (the wide tables with the scene's leaf
+  bits; the steps kernel over the threaded records); one with only
+  `idk_trace_stack_limit` takes the wide tables with 5 count bits and a
+  steps kernel over the six threaded arrays; one with neither, the binary
+  node records (`bvh_nodes`) for every query;
+- a two_phase.cu's phase A takes the binary node records.
 
 The batches are chip_smoke.py's: the 2.8M atrium's 1920x1080 primaries
 (closest), 5-unit shadow rays from their hits (any-hit), the path-traced
-frame's first bounce batch (closest) and every trace of one deferred frame
-(VXGI 256^3). Each library's results are held to the first library's by
-chip_smoke.check_agreement. Times are CUDA-event means over --reps
-launches, taken for the libraries in the order given and then in reverse
-(A B C C B A), each line with the card's name and power limit. The last
-line is one JSON object: label -> batch -> [ms of the first turn, ms of
-the second].
+frame's first bounce batch (closest), every trace of one deferred frame
+(VXGI 256^3), and the debug view's 1920x1080 primaries. trace.cu libraries
+run trace_closest/trace_any on the first four kinds and
+trace_closest_steps on the debug view's rays and the primaries; two_phase.cu
+libraries run phase A (D = 8) on the primaries, the shadow rays and the
+bounce batch. Each library is held to the first library of its kind: with
+the same interface, trace results by chip_smoke.check_agreement, steps,
+t, slot, u and v equal on every ray, phase A's cnt equal on every ray and
+its list sets where cnt <= D. An older trace.cu does not round its
+Möller–Trumbore test as the JAX package does (no fused multiply-adds), so
+its results are only reported: the share of rays with the first library's
+hit decision, and of those with t within 1e-5 relative. Times are
+CUDA-event means over --reps launches, taken for the libraries of a kind in
+the order given and then in reverse (A B C C B A), each line with the
+card's name and power limit. The last line is one JSON object: label ->
+batch -> [ms of the first turn, ms of the second].
 """
 import argparse
 import ctypes
@@ -33,6 +48,8 @@ from concurrent.futures import ThreadPoolExecutor
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import chip_smoke as cs  # noqa: E402
 
+D_SLOTS = 8
+
 
 def build(label, source, flags):
     from idkengine_tpu_torch.ops import packet_trace as kern
@@ -43,38 +60,105 @@ def build(label, source, flags):
                                 [find_nvcc(), *kern.NVCC_FLAGS, *flags], headers=(header,))
 
 
+def _stream():
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _hit_outputs(o):
+    import torch
+
+    r = o.shape[0]
+    t = torch.empty(r, device=o.device)
+    return t, torch.empty(r, dtype=torch.int32, device=o.device), torch.empty_like(t), \
+        torch.empty_like(t)
+
+
 def binary_call(lib, kind, scene, o, d, t_max):
     """One launch through the binary layout's interface."""
     import torch
 
     from idkengine_tpu_torch.ops import packet_trace as kern
 
-    t_max = kern._check_inputs(scene, o, d, t_max)
+    t_max = kern._check_rays(o, d, t_max)
     r, p = o.shape[0], kern._ptr
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     tables = (p(scene.bvh_nodes), p(scene.tri_p0), p(scene.tri_e1), p(scene.tri_e2))
     if kind == "trace_any":
         occ = torch.empty(r, dtype=torch.bool, device=o.device)
-        kern._raise_on(lib.idk_trace_any(*tables, p(o), p(d), p(t_max), p(occ), r, stream), kind)
+        kern._raise_on(lib.idk_trace_any(*tables, p(o), p(d), p(t_max), p(occ), r, _stream()),
+                       kind)
         return occ
-    t = torch.empty(r, device=o.device)
-    slot = torch.empty(r, dtype=torch.int32, device=o.device)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    kern._raise_on(lib.idk_trace_closest(*tables, p(o), p(d), p(t_max), p(t), p(slot), p(u),
-                                         p(v), r, stream), kind)
-    return kern.Hit(t=t, slot=slot, u=u, v=v)
+    out = _hit_outputs(o)
+    if kind == "trace_closest_steps":
+        threaded = [p(getattr(scene, k)) for k in ("node_min", "node_max", "node_first",
+                                                   "node_count", "hit_link", "miss_link")]
+        steps = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
+        kern._raise_on(lib.idk_trace_closest_steps(
+            *threaded, *tables[1:], p(o), p(d), p(t_max), *map(p, out), p(steps), r, _stream()),
+            kind)
+        return kern.Hit(*out), steps
+    kern._raise_on(lib.idk_trace_closest(*tables, p(o), p(d), p(t_max), *map(p, out), r,
+                                         _stream()), kind)
+    return kern.Hit(*out)
+
+
+def wide5_call(lib, kind, scene, o, d, t_max):
+    """One launch through the interface of the wide tables with 5 count
+    bits (the steps kernel over the six threaded arrays)."""
+    import torch
+
+    from idkengine_tpu_torch.ops import packet_trace as kern
+
+    if kind == "trace_closest_steps":
+        return binary_call(lib, kind, scene, o, d, t_max)
+    if scene.bvh4_leaf_bits != 5:
+        raise ValueError("this library packs leaf counts in 5 bits")
+    t_max, entries = kern._check_wide(scene, o, d, t_max)
+    r, p = o.shape[0], kern._ptr
+    next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
+    tables = (p(scene.bvh4_nodes), p(scene.tri_vec), p(o), p(d), p(t_max))
+    if kind == "trace_any":
+        occ = torch.empty(r, dtype=torch.bool, device=o.device)
+        kern._raise_on(lib.idk_trace_any(*tables, p(occ), p(next_ray), r, entries, _stream()),
+                       kind)
+        return occ
+    out = _hit_outputs(o)
+    kern._raise_on(lib.idk_trace_closest(*tables, *map(p, out), p(next_ray), r, entries,
+                                         _stream()), kind)
+    return kern.Hit(*out)
+
+
+def binary_phase_a(lib, scene, o, d, t_max, d_slots):
+    """Phase A through the binary layout's interface."""
+    import torch
+
+    from idkengine_tpu_torch.ops import packet_trace as kern
+
+    t_max = kern._check_rays(o, d, t_max)
+    r, p = o.shape[0], kern._ptr
+    lists = torch.empty((r, d_slots), dtype=torch.int32, device=o.device)
+    cnt = torch.empty(r, dtype=torch.int32, device=o.device)
+    kern._raise_on(lib.idk_phase_a(p(scene.bvh_nodes), p(o), p(d), p(t_max), p(lists), p(cnt),
+                                   d_slots, r, _stream()), "phase_a")
+    return lists, cnt
 
 
 def tracer(path):
-    """(kind, scene, o, d, t_max) -> result, through the library at path."""
+    """(interface, (kind, scene, o, d, t_max) -> result) of the trace library
+    at path."""
     from idkengine_tpu_torch.ops import packet_trace as kern
 
     raw = ctypes.CDLL(path)
-    if not hasattr(raw, "idk_trace_stack_limit"):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        raw.idk_trace_closest.argtypes = [vp] * 11 + [ci, vp]
-        raw.idk_trace_any.argtypes = [vp] * 8 + [ci, vp]
-        return lambda kind, *args: binary_call(raw, kind, *args)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    if not hasattr(raw, "idk_trace_interface"):
+        wide = hasattr(raw, "idk_trace_stack_limit")
+        raw.idk_trace_closest.argtypes = [vp] * (10 if wide else 11) + [ci] * (2 if wide else 1) \
+            + [vp]
+        raw.idk_trace_any.argtypes = [vp] * (7 if wide else 8) + [ci] * (2 if wide else 1) + [vp]
+        raw.idk_trace_closest_steps.argtypes = [vp] * 17 + [ci, vp]
+        call = wide5_call if wide else binary_call
+        return (2 if wide else 1), lambda kind, *args: call(raw, kind, *args)
     lib = kern.bind_library(path)
 
     def call(kind, *args):
@@ -83,7 +167,56 @@ def tracer(path):
             return getattr(kern, kind)(*args)
         finally:
             kern._lib = saved
-    return call
+    return lib.idk_trace_interface(), call
+
+
+def phase_a_runner(path):
+    """(scene, o, d, t_max) -> (lists, cnt) through the two-phase library at
+    path."""
+    raw = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    raw.idk_phase_a.argtypes = [vp] * 6 + [ci, ci, vp]
+    return lambda *args: binary_phase_a(raw, *args, D_SLOTS)
+
+
+def check_steps(got, want, what):
+    """Steps, t, slot, u and v equal on every ray."""
+    import torch
+
+    (gh, gs), (wh, ws) = got, want
+    if not torch.equal(gs, ws):
+        raise AssertionError(f"{what}: steps differ on {(gs != ws).sum().item()} rays")
+    for k in ("t", "slot", "u", "v"):
+        if not torch.equal(getattr(gh, k), getattr(wh, k)):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def check_phase_a(got, want, what):
+    """cnt equal on every ray, list sets equal where cnt <= D."""
+    import torch
+
+    (gl, gc), (wl, wc) = got, want
+    if not torch.equal(gc, wc):
+        raise AssertionError(f"{what}: cnt differs on {(gc != wc).sum().item()} rays")
+    fine = gc <= D_SLOTS
+    if not torch.equal(torch.sort(gl[fine], 1).values, torch.sort(wl[fine], 1).values):
+        raise AssertionError(f"{what}: list sets differ")
+
+
+def report_loose(kind, got, want):
+    """(share of rays with the same hit decision, share of those hits with t
+    within 1e-5 relative) of an older trace library against the first."""
+    import torch
+
+    if kind == "trace_closest_steps":
+        got, want = got[0], want[0]
+    if kind == "trace_any":
+        return (got == want).float().mean().item(), 1.0
+    hit = got.slot >= 0
+    same = hit == (want.slot >= 0)
+    both = hit & (want.slot >= 0)
+    close = torch.isclose(got.t[both], want.t[both], rtol=1e-5, atol=0)
+    return same.float().mean().item(), close.float().mean().item() if both.any() else 1.0
 
 
 def main(argv=None):
@@ -92,6 +225,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="+", help="LABEL=SOURCE[@FLAGS]")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--kinds", nargs="+", choices=("trace", "steps", "phase_a"),
+                    default=("trace", "steps", "phase_a"),
+                    help="which kernels to time (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_ab: no CUDA card", file=sys.stderr)
@@ -111,35 +247,69 @@ def main(argv=None):
         for line in out.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill")):
                 cs.log(f"#   {label} {' '.join(flags)}: {line.strip()}")
-    fns = {label: tracer(path) for (label, _, _), (path, _) in zip(specs, built)}
+    traces, phase_as = {}, {}
+    for (label, source, _), (path, _) in zip(specs, built):
+        if os.path.basename(source).startswith("two_phase"):
+            phase_as[label] = phase_a_runner(path)
+        else:
+            traces[label] = tracer(path)
 
     db, scene, cam = cs.phase_scene(dev)
     pt = cs.make_tracer(db, scene, cam, dev)
     batches = {name: (kind, scene, o, d, t) for name, (kind, o, d, t)
                in cs.main_path_batches(cam, pt, dev).items()}
     del pt
-    from idkengine_tpu_torch.render import DeferredPipeline
+    runs = []  # (name, kind, args, {label: fn}, {label: interface})
+    fns = {label: fn for label, (_, fn) in traces.items()}
+    faces = {label: face for label, (face, _) in traces.items()}
+    if traces and "trace" in args.kinds:
+        from idkengine_tpu_torch.render import DeferredPipeline
 
-    pipe = DeferredPipeline(db, cs.WIDTH, cs.HEIGHT, cs._deferred_settings(cs.VXGI_RES),
-                            device=dev)
-    pipe.render_frame(cam)
-    for n, call in enumerate(cs.record_deferred_traces(pipe, cam)):
-        batches[f"deferred {n}"] = call
-    del pipe
+        pipe = DeferredPipeline(db, cs.WIDTH, cs.HEIGHT, cs._deferred_settings(cs.VXGI_RES),
+                                device=dev)
+        pipe.render_frame(cam)
+        calls = {f"deferred {n}": call for n, call in
+                 enumerate(cs.record_deferred_traces(pipe, cam))}
+        del pipe
+        for name, (kind, *rest) in {**batches, **calls}.items():
+            runs.append((name, kind, rest, fns, faces))
+    if traces and "steps" in args.kinds:
+        o, d, t_max = cs.debug_view_rays(cam, dev)
+        for name, rest in (("steps debug view", (scene, o, d, t_max)),
+                           ("steps primary", batches["primary"][1:])):
+            runs.append((name, "trace_closest_steps", rest, fns, faces))
+    if phase_as and "phase_a" in args.kinds:
+        fns = {label: (lambda f: lambda kind, *a: f(*a))(fn) for label, fn in phase_as.items()}
+        faces = dict.fromkeys(phase_as, 1)
+        for name in ("primary", "shadow", "bounce"):
+            runs.append((f"phase_a {name}", "phase_a", batches[name][1:], fns, faces))
 
-    first = specs[0][0]
-    times = {label: {name: [] for name in batches} for label in fns}
-    for name, (kind, sc, o, d, t_max) in batches.items():
-        ref = fns[first](kind, sc, o, d, t_max)
+    times = {label: {} for label in [*traces, *phase_as]}
+    for name, kind, rest, fns, faces in runs:
+        first = next(iter(fns))
+        ref = fns[first](kind, *rest)
+        n_rays = rest[1].shape[0]
         for label, fn in fns.items():
-            agree, _ = cs.check_agreement(kind, fn(kind, sc, o, d, t_max), ref,
-                                          f"{label} against {first} on {name}")
-            cs.log(f"# {name} ({o.shape[0]} rays, {kind}): {label} agrees with {first} on "
-                   f"{agree:.6f}")
+            got = fn(kind, *rest)
+            what = f"{label} against {first} on {name}"
+            if kind == "phase_a":
+                check_phase_a(got, ref, what)
+                note = "cnt equal on every ray, list sets equal where cnt <= D"
+            elif faces[label] != faces[first]:
+                same, close = report_loose(kind, got, ref)
+                note = (f"other arithmetic: hit decision equal on {same:.6f}, t within 1e-5 on "
+                        f"{close:.6f} of common hits")
+            elif kind == "trace_closest_steps":
+                check_steps(got, ref, what)
+                note = "steps, t, slot, u, v equal on every ray"
+            else:
+                agree, _ = cs.check_agreement(kind, got, ref, what)
+                note = f"agrees on {agree:.6f}"
+            cs.log(f"# {name} ({n_rays} rays, {kind}): {label} against {first}: {note}")
         for label in [*fns, *reversed(fns)]:
-            ms = cs.cuda_time_ms(lambda: fns[label](kind, sc, o, d, t_max), args.reps)
-            times[label][name].append(ms)
-            cs.log(f"# {name} ({o.shape[0]} rays, {kind}): {label} {ms:.4f} ms; on {card}")
+            ms = cs.cuda_time_ms(lambda: fns[label](kind, *rest), args.reps)
+            times[label].setdefault(name, []).append(ms)
+            cs.log(f"# {name} ({n_rays} rays, {kind}): {label} {ms:.4f} ms; on {card}")
     cs.log(json.dumps(times))
     return 0
 
