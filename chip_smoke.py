@@ -55,11 +55,27 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      device time and clock64 cycles per step with the launch counts reset
      just before; then each kernel against its plain version at a reduced
      step count (outputs and chain state);
- 14. print the kernels' JSON line, then the result line.
+ 14. textured frame: the 2.8M atrium with the material model of a real
+     asset (scene/procedural.texture_atrium, made from --seed: textures,
+     a normal map, alpha-tested and blended cloth, per-mesh overrides)
+     under an env map from compute_atmosphere at 1024x512, written as flat
+     RGBE and read back through load_hdr; PathTracer at 1920x1080, depth 2,
+     sorting on, roulette off, env map and env NEE on: one warm-up frame,
+     then timed frames beside phase 5's factor-only frame, the launches per
+     frame, one frame under the profiler; the trace calls of one frame,
+     each timed through its kernel by what it traces (closest hits, alpha
+     re-traces, NEE and env-NEE rounds and tails), and the kernels against
+     their plain versions on the first alpha re-trace batch and the env-NEE
+     shadow batches; one timed deferred frame of the textured scene with
+     its per-mesh overrides; a small textured, alpha-tested, env-lit render
+     on the card against the CPU's;
+ 15. print the kernels' JSON line, then the result line.
 
 The script imports nothing of JAX. Without a CUDA card it exits nonzero
-before printing any result.
+before printing any result. `--seed` (default 0) seeds the textured
+scene's textures.
 """
+import argparse
 import json
 import os
 import subprocess
@@ -114,6 +130,12 @@ HAND_KERNELS = ("trace_kernel", "trace_steps_kernel", "scatter_max_kernel",  # _
 PT_PASSES = ("pt_sample", "denoise", "bloom", "tonemap")  # PathTracerPipeline's ranges
 DENOISE_AT = 32  # PtPipelineSettings' default: frames from 32 samples on denoise
 OVERFLOW_CHECK = 65_536  # overflow rays whose lists are checked against the full plain list
+ENV_SIZE = (1024, 512)  # the textured frame's env map, width x height
+# the trace calls of one textured bounce, in the order the tracer makes them
+TEXTURED_CALLS = ("closest", "alpha re-trace 1", "alpha re-trace 2", "NEE round 1",
+                  "NEE round 2", "NEE any-hit tail", "env-NEE round 1", "env-NEE round 2",
+                  "env-NEE any-hit tail")
+PT_RANGES = "pt/"  # PathTracer's profiler ranges (render/pathtracer.py)
 PROBE_CHECK_ITERS = 256  # steps of each probe's kernel-vs-plain check
 PROBE_CHECK_VISITS = 16  # leaf visits of bench_mxu_leaf's kernel-vs-plain check
 PROBE_SRC = "idkengine_tpu_torch/csrc/"
@@ -412,7 +434,7 @@ def phase_frame(pt, cam, dev, card):
         raise AssertionError("tonemapped image leaves [0,1]")
     log(f"# image: mean {img.mean().item():.5f}, std {img.std().item():.5f}, "
         f"tonemapped mean {out.mean().item():.5f}")
-    return launches
+    return launches, dict(ms=dt / TIMED_FRAMES * 1e3, mrays_per_s=rays / dt / 1e6)
 
 
 def phase_small_reference(dev):
@@ -599,7 +621,9 @@ def profile_frame(render, title, is_pass):
     hand kernels, launched through ctypes outside any op, join no pass and
     are listed apart. Where the profiler also traces a pass's span on the
     device (from its first to its last kernel, the hand kernels and idle
-    gaps included), that span is printed beside it."""
+    gaps included), that span is printed beside it. Returns the wall and
+    busy ms and each pass's device ms (None where no device time was
+    traced)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -616,7 +640,7 @@ def profile_frame(render, title, is_pass):
     launches = sum(e.count for e in kernels)
     if busy_ms <= 0:
         log(f"# {title} under the profiler: {wall_ms:.2f} ms wall; device time not traced")
-        return
+        return None
     log(f"# {title} under the profiler: {wall_ms:.2f} ms wall, {launches} device "
         f"kernels, device busy {busy_ms:.2f} ms ({(1 - busy_ms / wall_ms) * 100:.1f}% idle); "
         f"each pass's PyTorch-op kernels (device span, host time):")
@@ -636,6 +660,9 @@ def profile_frame(render, title, is_pass):
     log("# most device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"#   {e.self_device_time_total / 1e3:.2f} ms in {e.count} launches: {e.key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                passes={e.key: e.device_time_total / 1e3 for e in events
+                        if is_pass(e.key) and e.device_type == cpu})
 
 
 def phase_small_deferred(dev):
@@ -867,7 +894,8 @@ def phase_pipeline(db, cam, dev, card):
     if not rmse <= SMALL_RMSE:
         raise AssertionError("the two-phase accumulation disagrees with the one-phase one")
     for label, pipe in pipes.items():
-        profile_frame(lambda: pipe.render_frame(cam), f"{label} frame", lambda k: k in PT_PASSES)
+        profile_frame(lambda: pipe.render_frame(cam), f"{label} frame",
+                      lambda k: k in PT_PASSES or k.startswith(PT_RANGES))
     return launches
 
 
@@ -1132,9 +1160,237 @@ def phase_probes(dev, card):
     return entries
 
 
+def textured_atrium(dev, seed, tris):
+    """The atrium with texture_atrium's material model on `dev`, and its
+    per-mesh overrides set."""
+    from idkengine_tpu_torch.bvh.builder import BuildSettings
+    from idkengine_tpu_torch.scene.procedural import atrium, texture_atrium
+    from idkengine_tpu_torch.scene.scene_db import SceneDatabase
+
+    model = atrium(tris)
+    shading = texture_atrium(model, seed)
+    db = SceneDatabase(BuildSettings(**BUILD))
+    db.add_model(model)
+    scene = db.build(dev)
+    for pos, rad, r in LIGHTS:
+        db.lights.add(pos, rad, radius=r)
+    for k, kw in shading.items():
+        db.set_mesh_shading(k, **kw)
+    return db, scene, shading
+
+
+def textured_env(dev, width, height, path=None):
+    """The env map: compute_atmosphere on `dev`, with a small sun; where
+    `path` is given, written there as flat RGBE and read back (load_hdr)."""
+    from idkengine_tpu_torch.render.sky import compute_atmosphere
+    from idkengine_tpu_torch.scene.hdr import load_hdr, save_hdr
+
+    env = compute_atmosphere(width, height, device=dev)
+    env[height // 5:height // 5 + height // 64 + 1, width // 3:width // 3 + width // 64 + 1] = 60.0
+    if path is None:
+        return env
+    save_hdr(path, env)
+    return load_hdr(path)
+
+
+def textured_settings():
+    from idkengine_tpu_torch.render import PathTracerSettings
+
+    return PathTracerSettings(ray_depth=DEPTH, russian_roulette=False, do_ray_sorting=True,
+                              sky_strength=1.0, use_env_map=True, env_nee=True)
+
+
+def record_pt_traces(pt, cam):
+    """The trace calls (kind, label, o, d, t_max) of one frame of `pt`, in
+    the order the tracer makes them, recorded by standing in for the
+    tracer's trace functions."""
+    from idkengine_tpu_torch.render import pathtracer as pathtracer_mod
+
+    calls = []
+
+    def recording(kind):
+        fn = getattr(pathtracer_mod, kind)
+
+        def run(scene, o, d, t_max):
+            calls.append((kind, o, d, t_max))
+            return fn(scene, o, d, t_max)
+        return run
+
+    saved = pathtracer_mod.trace_closest, pathtracer_mod.trace_any
+    pathtracer_mod.trace_closest, pathtracer_mod.trace_any = (recording("trace_closest"),
+                                                              recording("trace_any"))
+    try:
+        pt.render_frame(cam)
+    finally:
+        pathtracer_mod.trace_closest, pathtracer_mod.trace_any = saved
+    if len(calls) != DEPTH * len(TEXTURED_CALLS):
+        raise AssertionError(f"the textured frame made {len(calls)} trace calls, not "
+                             f"{DEPTH * len(TEXTURED_CALLS)}")
+    return [(kind, f"bounce {n // len(TEXTURED_CALLS)} {TEXTURED_CALLS[n % len(TEXTURED_CALLS)]}",
+             o, d, t_max) for n, (kind, o, d, t_max) in enumerate(calls)]
+
+
+def phase_textured(dev, card, seed, factor_frame, timings):
+    """Phase 14: the textured frame (see the module's docstring). Returns
+    the launch counts of its timed path-traced frames and of its deferred
+    frame."""
+    import numpy as np
+    import torch
+
+    from idkengine_tpu_torch.ops import packet_trace as kern
+    from idkengine_tpu_torch.render import Camera, DeferredPipeline, PathTracer
+    from idkengine_tpu_torch.render.tonemap import tonemap
+
+    t_start = time.perf_counter()
+    cam = Camera(position=np.array(CAMERA["position"], np.float32), yaw=CAMERA["yaw"],
+                 fov_y=CAMERA["fov_y"])
+    db, scene, shading = textured_atrium(dev, seed, TRIS)
+    torch_sync(dev)
+    t1 = time.perf_counter()
+    soa = db.materials.soa()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_sky.hdr")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    env = textured_env(dev, *ENV_SIZE, path)
+    t2 = time.perf_counter()
+    log(f"# textured atrium {db.meta.n_triangles} tris (seed {seed}): scene {t1 - t_start:.1f} s; "
+        f"atlas {soa['atlas'].shape[0]} layers, {soa['atlas'].nbytes / 1e6:.1f} MB; per-mesh "
+        f"overrides on placements {sorted(shading)} of {db.n_meshes}; env map "
+        f"{ENV_SIZE[0]}x{ENV_SIZE[1]} through flat RGBE ({os.path.getsize(path) / 1e6:.1f} MB) "
+        f"in {t2 - t1:.2f} s")
+    pt = PathTracer(scene, soa, db.lights.soa(), WIDTH, HEIGHT, textured_settings(), env_map=env,
+                    slot_shading=db.slot_shading(), device=dev)
+    torch_sync(dev)
+    t3 = time.perf_counter()
+    pt.render_frame(cam)  # warm-up
+    torch_sync(dev)
+    log(f"# textured tracer init (attribute pack, alias table) {t3 - t2:.2f} s, warm-up frame "
+        f"{time.perf_counter() - t3:.2f} s")
+
+    reset_all_launch_counts()
+    rays = 0.0
+    t0 = time.perf_counter()
+    for _ in range(TIMED_FRAMES):
+        img = pt.render_frame(cam)
+        rays += float(pt.last_rays_traced)
+    torch_sync(dev)
+    dt = time.perf_counter() - t0
+    launches = {"pathtracer_textured": read_launch_counts()}
+    per_frame = {k: v / TIMED_FRAMES for k, v in launches["pathtracer_textured"].items() if v}
+    ms = dt / TIMED_FRAMES * 1e3
+    log(f"# textured frame: {ms:.2f} ms/frame, {rays / dt / 1e6:.2f} Mrays/s "
+        f"({rays / TIMED_FRAMES / 1e6:.3f} Mrays/frame), {WIDTH}x{HEIGHT} depth {DEPTH}, "
+        f"textures, alpha test, normal maps, env NEE, per-mesh overrides; beside the factor-only "
+        f"frame (phase 5) {factor_frame['ms']:.2f} ms/frame, {factor_frame['mrays_per_s']:.2f} "
+        f"Mrays/s; on {card}; launches per frame {per_frame}")
+    for name in ("trace_closest", "trace_any"):
+        if launches["pathtracer_textured"][name] == 0:
+            raise AssertionError(f"{name} was not launched on the textured frame")
+    out = tonemap(img)
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("textured image is not a finite (H,W,3) array")
+    if not (img.std().item() > 0 and 0.0 <= out.min().item() and out.max().item() <= 1.0):
+        raise AssertionError("textured image is flat or its tonemap leaves [0,1]")
+    log(f"# textured image: mean {img.mean().item():.5f}, std {img.std().item():.5f}, "
+        f"tonemapped mean {out.mean().item():.5f}")
+    prof = profile_frame(lambda: pt.render_frame(cam), "textured frame",
+                         lambda k: k.startswith(PT_RANGES))
+
+    # each trace call of one frame through its kernel, grouped by what it
+    # traces; then the kernels against their plain versions on the new batches
+    calls = record_pt_traces(pt, cam)
+    by_what, any_ms = {}, 0.0
+    for kind, label, o, d, t_max in calls:
+        call_ms = cuda_time_ms(lambda: getattr(kern, kind)(scene, o, d, t_max), 5)
+        live = int((t_max >= 0).sum().item())
+        what = label.split(" ", 2)[2].rstrip(" 12")
+        by_what[what] = by_what.get(what, 0.0) + call_ms
+        extra = ""
+        if label.endswith("NEE round 1"):
+            # the same shadow rays as one any-hit trace: their cost without alpha
+            one_ms = cuda_time_ms(lambda: kern.trace_any(scene, o, d, t_max), 5)
+            any_ms += one_ms
+            extra = f"; as one any-hit trace {one_ms:.4f} ms"
+        log(f"#   {label} ({kind}): {live} live rays of {o.shape[0]}, kernel {call_ms:.4f} ms"
+            f"{extra}")
+    kernel_ms = sum(by_what.values())
+    log(f"# textured frame's trace kernels {kernel_ms:.3f} ms a frame: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in by_what.items()))
+    shadow_ms = sum(v for k, v in by_what.items() if "NEE" in k)
+    if prof is not None:
+        passes = prof["passes"]
+        tex_ms = passes.get("pt/textures", 0.0)
+        retrace_ms = passes.get("pt/alpha re-traces", 0.0) + by_what["alpha re-trace"]
+        rounds_ms = passes.get("pt/shadow alpha rounds", 0.0) + shadow_ms - any_ms
+        log(f"# textured frame's shares of {ms:.2f} ms: texture sampling (pt/textures) "
+            f"{tex_ms:.2f} ms ({tex_ms / ms * 100:.1f}%); alpha re-traces of the camera and "
+            f"bounce rays (their glue and kernels) {retrace_ms:.2f} ms "
+            f"({retrace_ms / ms * 100:.1f}%); the shadow rays' alpha rounds above one any-hit "
+            f"trace (glue and kernels, {shadow_ms:.2f} ms against {any_ms:.2f} ms) "
+            f"{rounds_ms:.2f} ms ({rounds_ms / ms * 100:.1f}%); device busy {prof['busy_ms']:.2f}"
+            f" ms of {prof['wall_ms']:.2f} ms wall, the hand kernels apart")
+    checks = {"bounce 0 alpha re-trace 1": "the first alpha re-trace batch",
+              "bounce 0 env-NEE round 1": "the env-NEE shadow batch (first round)",
+              "bounce 0 env-NEE any-hit tail": "the env-NEE shadow batch (any-hit tail)"}
+    for kind, label, o, d, t_max in calls:
+        if label not in checks:
+            continue
+        _, m, agree = compare_trace(kind, scene, o, d, t_max, reps=5)
+        m.update(steps_stats(scene, o, d, t_max))
+        log_batch(kind, f"textured frame, {checks[label]}", o, m, agree,
+                  f"; live rays {int((t_max >= 0).sum().item())}; on {card}")
+        entry = timings[kind]
+        entry["max_abs_err"] = max(entry["max_abs_err"], m["max_abs_err"])
+        entry["batches"].append(dict(batch=f"textured {label}", rays=o.shape[0], agreement=agree,
+                                     **m))
+    del pt, calls
+
+    # one deferred frame of the textured scene, per-mesh overrides on
+    pipe = DeferredPipeline(db, WIDTH, HEIGHT, _deferred_settings(VXGI_RES), device=dev)
+    if pipe.slot_shading() is None:
+        raise AssertionError("the deferred pipeline took no per-mesh overrides")
+    t0 = time.perf_counter()
+    pipe.render_frame(cam)  # warm-up
+    torch_sync(dev)
+    warm = time.perf_counter() - t0
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe.render_frame(cam)
+    torch_sync(dev)
+    launches["deferred_textured"] = read_launch_counts()
+    log(f"# textured deferred frame: {(time.perf_counter() - t0) * 1e3:.2f} ms (one frame after a "
+        f"{warm:.2f} s warm-up), {WIDTH}x{HEIGHT}, VXGI {VXGI_RES}^3, per-mesh overrides, on "
+        f"{card}; launches {launches['deferred_textured']}")
+    if tuple(out.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("textured deferred image is not a finite (H,W,3) array")
+    if not (0.0 <= out.min().item() and out.max().item() <= 1.0 and out.std().item() > 0.01):
+        raise AssertionError("textured deferred image leaves [0,1] or is flat")
+    del pipe, db, scene
+    torch.cuda.empty_cache()
+
+    # a small textured, alpha-tested, env-lit render on the card and the CPU
+    env_small = textured_env("cpu", 64, 32)
+    imgs = []
+    for device in (dev, "cpu"):
+        sdb, sscene, _ = textured_atrium(device, seed, 8000)
+        spt = PathTracer(sscene, sdb.materials.soa(), sdb.lights.soa(), 96, 54,
+                         textured_settings(), env_map=env_small,
+                         slot_shading=sdb.slot_shading(), device=device)
+        imgs.append(spt.render_frame(cam).cpu().numpy())
+    rmse = float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2)))
+    log(f"# small textured atrium 96x54, env NEE: card vs CPU RMSE {rmse:.3g} (limit "
+        f"{SMALL_RMSE})")
+    if not rmse <= SMALL_RMSE:
+        raise AssertionError("the card's textured render disagrees with the CPU render")
+    log(f"# phase 14 (textured frame) took {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
 def main():
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--seed", type=int, default=0, help="seed of the textured scene")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
@@ -1145,7 +1401,8 @@ def main():
     db, scene, cam = phase_scene(dev)
     pt = make_tracer(db, scene, cam, dev)
     timings, batches = phase_compare(scene, cam, pt, dev, card)
-    launches = {"pathtracer": phase_frame(pt, cam, dev, card)}
+    launches, factor_frame = {}, None
+    launches["pathtracer"], factor_frame = phase_frame(pt, cam, dev, card)
     del pt
     phase_small_reference(dev)
 
@@ -1172,6 +1429,8 @@ def main():
     log(f"# phases 1-12 took {time.perf_counter() - t_start:.1f} s")
     probes = phase_probes(dev, card)
     log(f"# phases 1-13 took {time.perf_counter() - t_start:.1f} s")
+    launches.update(phase_textured(dev, card, args.seed, factor_frame, timings))
+    log(f"# phases 1-14 took {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, where in KERNELS_WHERE.items():

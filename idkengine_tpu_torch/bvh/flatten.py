@@ -13,7 +13,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from ..ops.intersect import cross3
 from ..utils import compression as comp
 from . import builder as _builder
 
@@ -93,9 +95,11 @@ def flatten_triangles(
     n_packed = np.stack(
         [comp.compress_normal(nrm[:, k]) for k in range(3)], axis=1
     ).astype(np.uint32)
-    gn = np.cross(e1, e2)
-    gl = np.linalg.norm(gn, axis=-1, keepdims=True)
-    gn = gn / np.maximum(gl, 1e-20)
+    # the face normal as the JAX package's jitted flatten rounds it: its
+    # cross product fused by XLA:CPU (cross3), its norm as vector_norm's
+    g = cross3(torch.from_numpy(np.ascontiguousarray(e1, np.float32)),
+               torch.from_numpy(np.ascontiguousarray(e2, np.float32)))
+    gn = (g / torch.clamp(torch.linalg.vector_norm(g, dim=-1, keepdim=True), min=1e-20)).numpy()
     uv = (
         uvs[tri_v].astype(np.float32)
         if uvs is not None

@@ -35,6 +35,12 @@ def _cross(ax, ay, az, bx, by, bz):
     return (fma(ay, bz, -(az * by)), fma(az, bx, -(ax * bz)), fma(ax, by, -(ay * bx)))
 
 
+def cross3(a, b):
+    """jnp.cross of (...,3) tensors as XLA:CPU rounds it."""
+    return torch.stack(_cross(a[..., 0], a[..., 1], a[..., 2], b[..., 0], b[..., 1], b[..., 2]),
+                       dim=-1)
+
+
 def _dot(ax, ay, az, bx, by, bz):
     """A 3-term jnp.sum(a * b) as XLA:CPU rounds it."""
     return fma(az, bz, fma(ay, by, ax * bx))

@@ -15,6 +15,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..ops.intersect import fma
 from ..utils import mathutil as mu
 
 
@@ -59,18 +60,30 @@ class Camera:
 
 
 def generate_rays(params: dict, width: int, height: int, jitter: torch.Tensor,
-                  lens_u: torch.Tensor | None = None):
+                  lens_u: torch.Tensor | None = None, fused: bool = False):
     """Primary ray batch (R=W*H,3) on jitter's device, ray i for pixel i.
     jitter: (2,) or (R,2) subpixel offset in [0,1); lens_u: (R,2) uniforms
-    for thin-lens DoF or None."""
+    for thin-lens DoF or None.
+
+    The JAX package runs this function op by op in its G-buffer and under
+    jit in its path tracer, and XLA:CPU rounds the two differently; so does
+    the port. `fused` rounds as the jit does: the divisions by the width and
+    height become products by their rounded reciprocals, constants fold,
+    and each product fuses into the addition after it (also the thin lens's
+    refocus). Each form is bit-equal to its counterpart without a lens;
+    with one, the sine and cosine may round apart."""
     dev = jitter.device
     vec = {k: torch.as_tensor(params[k], dtype=torch.float32, device=dev)
            for k in ("origin", "forward", "right", "up")}
     px = torch.arange(width * height, device=dev)
-    x = (px % width).to(torch.float32)
-    y = torch.div(px, width, rounding_mode="floor").to(torch.float32)
-    u = (x + jitter[..., 0]) / width * 2.0 - 1.0
-    v = 1.0 - (y + jitter[..., 1]) / height * 2.0
+    x = (px % width).to(torch.float32) + jitter[..., 0]
+    y = torch.div(px, width, rounding_mode="floor").to(torch.float32) + jitter[..., 1]
+    if fused:
+        u = fma(x, torch.full_like(x, np.float32(1.0 / width) * 2), torch.full_like(x, -1.0))
+        v = fma(-y, torch.full_like(y, np.float32(1.0 / height) * 2), torch.full_like(y, 1.0))
+    else:
+        u = x / width * 2.0 - 1.0
+        v = 1.0 - y / height * 2.0
     d = vec["forward"][None, :] + u[:, None] * vec["right"][None, :] + v[:, None] * vec["up"][None, :]
     d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
     o = vec["origin"].expand(d.shape)
@@ -83,7 +96,8 @@ def generate_rays(params: dict, width: int, height: int, jitter: torch.Tensor,
         up_n = vec["up"] / torch.linalg.vector_norm(vec["up"])
         offset = (right_n[None, :] * (r * torch.cos(phi))[:, None]
                   + up_n[None, :] * (r * torch.sin(phi))[:, None])
-        focus = o + d * float(params["focal_distance"])
+        fd = float(params["focal_distance"])
+        focus = fma(d, torch.full_like(d, fd), o) if fused else o + d * fd
         o = o + offset
         d = focus - o
         d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)

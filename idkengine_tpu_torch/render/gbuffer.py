@@ -8,10 +8,11 @@ reference's rasterized G-buffer fill (ref: Source/Render/RasterPipeline.cs:
 RasterPipeline.cs:646-686: albedo, normal, metallic/roughness, emissive,
 velocity, depth).
 
-Materials are factor-only, as the port's MaterialTable holds them: the JAX
-package's atlas lookup returns ones for a material without a texture layer,
-so the factors are the result and the texture LOD is not computed. Per-mesh
-shading overrides (`slot_shading`) are not ported and raise.
+Materials are the factors times the texture atlas (base colour,
+metal-roughness, emissive), sampled trilinearly at a ray-cone LOD, then
+the per-mesh shading biases (`slot_shading`). A scene without any texture
+skips the atlas (no `slot_uv_density`): its lookup returns ones, so the
+image is the same.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 from ..utils.compression import decompress_normal
 from .camera import generate_rays
+from .pathtracer import sample_atlas
 
 
 class GBuffer(NamedTuple):
@@ -42,13 +44,16 @@ def _cam_vectors(cam: dict, device) -> dict:
 
 def render_gbuffer(trace_fn, scene, mats, cam_params, prev_cam_params,
                    width: int, height: int, jitter=None, mip_bias: float = 0.0,
-                   slot_shading=None):
+                   slot_shading=None, slot_uv_density=None):
     """One G-buffer pass. trace_fn(o, d, t_max) -> Hit; mats: dict of
-    material tensors on the scene's device (factor-only); jitter (2,)
-    subpixel (TAA Halton jitter, ref: RasterPipeline.cs:266-299); mip_bias:
-    texture LOD bias, without effect on factor-only materials."""
-    if slot_shading is not None:
-        raise NotImplementedError("render_gbuffer(slot_shading=...) is not ported")
+    material tensors on the scene's device (factors, layer indices, atlas);
+    jitter (2,) subpixel (TAA Halton jitter, ref: RasterPipeline.cs:266-299);
+    mip_bias: texture LOD bias (ref: TAAResolve.cs:76-80); slot_shading:
+    optional (n_slots, 10) per-mesh override rows (MeshShading.row order),
+    whose emissive, specular and roughness biases apply as the raster
+    G-buffer applies them (ref: GBuffer/fragment.glsl + Surface.glsl:85-96);
+    slot_uv_density: the scene's per-slot UV density (pathtracer.uv_density)
+    when any material has a texture, else None (factors only)."""
     dev = scene.device
     r = width * height
     jit = torch.zeros(2, device=dev) + (
@@ -72,6 +77,27 @@ def render_gbuffer(trace_fn, scene, mats, cam_params, prev_cam_params,
     metallic = mats["metallic"][mat_id]
     roughness = mats["roughness"][mat_id]
     emissive = mats["emissive"][mat_id]
+    if slot_uv_density is not None:
+        # ray-cone texture LOD: the pixel footprint at the hit distance in
+        # texels, through the triangle's UV density, trilinear across mips
+        uv3 = scene.tri_uv[slot]
+        uv = uv3[:, 0] * w_b[..., None] + uv3[:, 1] * u[..., None] + uv3[:, 2] * v[..., None]
+        up = torch.as_tensor(cam_params["up"], dtype=torch.float32, device=dev)
+        cone0 = 2.0 * torch.linalg.vector_norm(up) / height
+        atlas = mats["atlas"]
+        texel = hit.t * cone0 * slot_uv_density[slot] * float(atlas.shape[1])
+        lod = torch.log2(torch.clamp(texel, min=1.0)) + mip_bias
+        tex = [sample_atlas(atlas, mats[k][mat_id], uv, lod)
+               for k in ("base_layer", "mr_layer", "emissive_layer")]
+        albedo = albedo * tex[0][..., :3]
+        metallic = metallic * tex[1][..., 2]
+        roughness = roughness * tex[1][..., 1]
+        emissive = emissive * tex[2][..., :3]
+    if slot_shading is not None:
+        sh = torch.as_tensor(slot_shading, dtype=torch.float32, device=dev)[slot]  # (R,10)
+        emissive = emissive + sh[:, 0:1] * albedo
+        metallic = torch.clamp(metallic + sh[:, 2], 0.0, 1.0)
+        roughness = torch.clamp(roughness + sh[:, 3], 0.0, 1.0)
 
     pos = o + d * torch.clamp(hit.t, max=1e8)[..., None]
 

@@ -40,7 +40,7 @@ from . import taa as taa_mod
 from . import tonemap as tonemap_mod
 from .camera import Camera
 from .gbuffer import render_gbuffer
-from .pathtracer import PathTracer, PathTracerSettings
+from .pathtracer import PathTracer, PathTracerSettings, uv_density
 from .vxgi import VoxelGrid, VxgiSettings
 
 
@@ -76,6 +76,20 @@ def _refuse_settings(s: DeferredSettings2):
         raise ValueError(f"unknown shadow mode {s.shadows!r}")
 
 
+def material_tensors(soa: dict, device) -> dict:
+    """MaterialTable.soa() on `device`: float32 factors, int64 texture
+    layers, the uint8 atlas."""
+    out = {}
+    for k, v in soa.items():
+        if k == "atlas":
+            out[k] = torch.as_tensor(np.asarray(v, np.uint8), device=device)
+        elif k.endswith("_layer"):
+            out[k] = torch.as_tensor(np.asarray(v, np.int64), device=device)
+        else:
+            out[k] = torch.as_tensor(np.asarray(v, np.float32), device=device)
+    return out
+
+
 class DeferredPipeline:
     """The 'rasterizer mode' equivalent (ref: RasterPipeline.Render) over a
     built SceneDatabase."""
@@ -95,8 +109,13 @@ class DeferredPipeline:
         self.db = scene_db
         self.width = width
         self.height = height
-        self.mats = {k: torch.as_tensor(np.asarray(v, np.float32), device=self.device)
-                     for k, v in scene_db.materials.soa().items()}
+        soa = scene_db.materials.soa()
+        self.mats = material_tensors(soa, self.device)
+        self._shading_key, self._slot_shading = None, None
+        # decided once: the G-buffer samples the atlas only for a textured scene
+        self._has_textures = any(bool(np.any(np.asarray(soa[k]) >= 0))
+                                 for k in ("base_layer", "mr_layer", "emissive_layer"))
+        self._uv_density = (None, None)  # (scene, its per-slot UV density)
         self.frame = 0
         self.history = None
         self._prev_cam_params = None
@@ -105,6 +124,26 @@ class DeferredPipeline:
             lo = scene_db.blas.nodes["min"][0] - 0.1
             hi = scene_db.blas.nodes["max"][0] + 0.1
             self.voxel_grid = VoxelGrid(lo, hi, self.settings.vxgi, device=self.device)
+
+    def slot_shading(self):
+        """The scene's per-slot shading rows on the device, or None; made
+        again only when the database's mesh overrides change."""
+        key = tuple((k, ms.row().tobytes()) for k, ms in sorted(self.db.mesh_shading.items()))
+        if key != self._shading_key:
+            rows = self.db.slot_shading()
+            self._slot_shading = (None if rows is None
+                                  else torch.as_tensor(rows, device=self.device))
+            self._shading_key = key
+        return self._slot_shading
+
+    def slot_uv_density(self, scene):
+        """The scene's per-slot UV density for the texture LOD, or None for a
+        scene without textures; made again only for a rebuilt scene."""
+        if not self._has_textures:
+            return None
+        if self._uv_density[0] is not scene:
+            self._uv_density = (scene, uv_density(scene.tri_uv, scene.tri_e1, scene.tri_e2))
+        return self._uv_density[1]
 
     # -- frame graph ---------------------------------------------------
     def render_frame(self, camera: Camera) -> torch.Tensor:
@@ -140,7 +179,8 @@ class DeferredPipeline:
             bias = taa_mod.mip_bias(w, self.width) if s.use_taa else 0.0
             gbuf = render_gbuffer(closest, scene, self.mats, cam_params, prev_cam, w, h,
                                   jitter=torch.as_tensor(jitter, dtype=torch.float32),
-                                  mip_bias=bias)
+                                  mip_bias=bias, slot_shading=self.slot_shading(),
+                                  slot_uv_density=self.slot_uv_density(scene))
 
         # SSAO on view-space positions: position relative to the camera in
         # its basis
@@ -229,7 +269,8 @@ class PathTracerPipeline:
         self.db = scene_db
         self.pt = PathTracer(scene_db.device_scene, scene_db.materials.soa(),
                              scene_db.lights.soa(), width, height, pt_settings,
-                             env_map=env_map, device=device)
+                             env_map=env_map, slot_shading=scene_db.slot_shading(),
+                             device=device)
         self.width, self.height = width, height
 
     def reset_accumulation(self):

@@ -3,13 +3,16 @@
 Carried over as numpy code: the Cornell box (correctness oracle) and the
 parametric atrium whose triangle budget dials the scene from Sponza (262k)
 to Bistro (2.8M) class, with the mesh primitives they are made of.
+`texture_atrium` (the port's own) gives an atrium the material model of a
+real asset: planar UVs and generated textures, alpha-tested and blended
+cloth, per-mesh overrides.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..utils import mathutil as mu
-from .model import Material, MeshPrimitive, Model, Node
+from .model import Material, MeshPrimitive, Model, Node, Texture
 
 # ---------------------------------------------------------------------------
 # Mesh primitives
@@ -215,3 +218,62 @@ def atrium(tri_budget: int = 262_000, seed: int = 0) -> Model:
     model.nodes.append(root)
     model.root_nodes.append(0)
     return model
+
+
+def _checker(size, cells, a, b):
+    yy, xx = np.mgrid[:size, :size]
+    on = ((yy * cells // size + xx * cells // size) % 2 == 0)[..., None]
+    return np.where(on, np.asarray(a, np.uint8), np.asarray(b, np.uint8)).astype(np.uint8)
+
+
+def texture_atrium(model: Model, seed: int = 0, texture_cls=Texture) -> dict[int, dict]:
+    """Give an atrium (atrium()) the material model of a textured asset, in
+    place: planar UVs on every primitive; an sRGB checker base colour on
+    `stone` and `floor`; a metal-roughness texture on `metal`; a
+    tangent-space normal map on `stone`; an emissive texture on `floor`;
+    `cloth_red` alpha-tested (MASK, cutoff 0.5, an alpha checker) and
+    `cloth_green` blended (BLEND, base alpha 0.5); the rest opaque. Textures
+    are made from `seed` with numpy, as `texture_cls` (the Texture class of
+    the model's package). Returns per-mesh overrides for
+    SceneDatabase.set_mesh_shading: placement index -> fields (an emissive
+    bias on the first statue, a roughness bias on the first column)."""
+    rs = np.random.RandomState(seed)
+    size = 256
+    for prim in model.primitives:
+        p = prim.positions
+        prim.uvs = np.stack([p[:, 0] * 0.25 + p[:, 1] * 0.125,
+                             p[:, 2] * 0.25 + p[:, 1] * 0.125], -1).astype(np.float32)
+    stone = _checker(size, 8, (200, 190, 175, 255), (120, 110, 100, 255))
+    floor = _checker(size, 16, (225, 215, 200, 255), (60, 55, 50, 255))
+    mr = np.zeros((size, size, 4), np.uint8)
+    mr[..., 1] = rs.randint(40, 256, (size // 16, size // 16)).repeat(16, 0).repeat(16, 1)
+    mr[..., 2] = rs.randint(128, 256, (size // 32, size // 32)).repeat(32, 0).repeat(32, 1)
+    mr[..., 3] = 255
+    x = np.arange(size) * (2 * np.pi / 32)
+    normal = np.zeros((size, size, 4), np.uint8)
+    normal[..., 0] = (128 + 100 * np.sin(x))[None, :].astype(np.uint8)
+    normal[..., 1] = (128 + 100 * np.sin(x))[:, None].astype(np.uint8)
+    normal[..., 2] = 200
+    normal[..., 3] = 255
+    glow = np.zeros((size, size, 4), np.uint8)
+    glow[..., :3] = np.where((np.arange(size) % 64 < 4)[:, None, None], 255, 0)
+    glow[..., 3] = 255
+    cloth = _checker(size, 16, (255, 255, 255, 255), (255, 255, 255, 0))
+    textures = [("stone", stone, True), ("floor", floor, True), ("mr", mr, False),
+                ("normal", normal, False), ("glow", glow, True), ("cloth", cloth, True)]
+    model.textures = [texture_cls(name=n, data=d, is_srgb=srgb) for n, d, srgb in textures]
+    mats = {m.name: m for m in model.materials}
+    for m in model.materials:
+        m.alpha_cutoff = -1.0
+    mats["stone"].base_color_texture, mats["stone"].normal_texture = 0, 3
+    mats["floor"].base_color_texture, mats["floor"].emissive_texture = 1, 4
+    mats["floor"].emissive = np.array([0.8, 0.6, 0.3], np.float32)
+    mats["metal"].metallic_roughness_texture = 2
+    mats["cloth_red"].alpha_cutoff, mats["cloth_red"].base_color_texture = 0.5, 5
+    mats["cloth_green"].alpha_cutoff = 0.0
+    mats["cloth_green"].base_color = np.array([0.1, 0.4, 0.12, 0.5], np.float32)
+    names = [m.name for m in model.materials]
+    kinds = [names[p.material] for p in model.primitives]
+    statue = kinds.index("metal")
+    column = next(i for i, k in enumerate(kinds) if k == "stone" and i > 6)
+    return {statue: dict(emissive_bias=3.0), column: dict(roughness_bias=-0.5)}

@@ -65,3 +65,14 @@ def unpack_snorm2x16(u: torch.Tensor) -> torch.Tensor:
 
 def decompress_normal(u: torch.Tensor) -> torch.Tensor:
     return decode_octahedral(unpack_snorm2x16(u))
+
+
+def compress_normal_t(n: torch.Tensor) -> torch.Tensor:
+    """compress_normal on tensors (the JAX package's `compress_normal_xp`
+    for jnp): unit vectors (...,3) → uint32 bit patterns in int64."""
+    n = n / torch.clamp(n.abs().sum(-1, keepdim=True), min=1e-20)
+    p = n[..., :2]
+    wrap = (1.0 - p.flip(-1).abs()) * torch.where(p >= 0.0, 1.0, -1.0)
+    p = torch.where(n[..., 2:3] >= 0.0, p, wrap)
+    q = torch.round(torch.clamp(p, -1.0, 1.0) * 32767.0).to(torch.int64)
+    return (q[..., 0] & 0xFFFF) | ((q[..., 1] & 0xFFFF) << 16)

@@ -548,6 +548,45 @@ def test_two_phase_pipeline_on_card_matches_cpu(dev):
     assert float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2))) <= 1e-3
 
 
+
+def test_textured_alpha_env_render_on_card_matches_cpu(dev):
+    """The material and environment model on the card: a textured atrium
+    (textures, alpha-tested and blended cloth, a normal map, per-mesh
+    overrides) under an atmospheric env map with env NEE, 64x64 at depth 2,
+    rays sorted; its alpha re-traces and shadow rays go through the trace
+    kernel."""
+    from idkengine_tpu_torch.render.sky import compute_atmosphere
+    from idkengine_tpu_torch.scene.procedural import texture_atrium
+
+    cam = Camera(position=np.array([0.0, 3.0, 24.0], np.float32), yaw=-90.0, fov_y=65.0)
+    env = compute_atmosphere(64, 32, device="cpu")
+    env[6:8, 20:22] = 60.0  # a small sun
+    settings = PathTracerSettings(ray_depth=2, russian_roulette=False, do_ray_sorting=True,
+                                  use_env_map=True, env_nee=True)
+    imgs = []
+    for device in (dev, "cpu"):
+        model = atrium(8000)
+        shading = texture_atrium(model, seed=0)
+        db = SceneDatabase(BuildSettings(**BUILD))
+        db.add_model(model)
+        scene = db.build(device)
+        db.lights.add([0.0, 10.5, 0.0], [40.0, 38.0, 35.0], radius=0.8)
+        for k, kw in shading.items():
+            db.set_mesh_shading(k, **kw)
+        pt = PathTracer(scene, db.materials.soa(), db.lights.soa(), 64, 64, settings,
+                        env_map=env, slot_shading=db.slot_shading(), device=device)
+        kern.reset_launch_counts()
+        imgs.append(pt.render_frame(cam).cpu().numpy())
+        if device == dev:
+            assert pt._has_alpha and pt._has_textures and pt._has_normal_maps
+            # per bounce: a closest trace and its two alpha re-traces; two
+            # rounds of closest traces and an any-hit tail for the NEE and
+            # the env-NEE shadow rays each
+            assert kern.trace_closest.launches == 2 * (3 + 2 + 2)
+            assert kern.trace_any.launches == 2 * 2
+    assert np.isfinite(imgs[0]).all() and imgs[0].std() > 0.01
+    assert float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2))) <= 1e-3
+
 # The probes (idkengine_tpu_torch/tools/, the TPU microbenchmarks P1-P6):
 # each kernel performs its plain version's operations in the same order
 # (float sums in the order of `_probe.cta_sum`), so outputs and chain state

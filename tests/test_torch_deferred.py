@@ -216,8 +216,6 @@ def test_unported_pass_options_raise(gbuffers):
     with pytest.raises(NotImplementedError):
         deferred.shade_deferred(gbuf, lights, 1, np.zeros(3, np.float32), None,
                                 deferred.DeferredSettings(shadow_mode="pcf"))
-    with pytest.raises(NotImplementedError):
-        render_gbuffer(None, None, None, None, None, W, H, slot_shading=np.zeros((1, 10)))
 
 
 def test_pipeline_refuses_scene_on_another_device(scenes):
