@@ -17,10 +17,18 @@
 //   f32   t0 = (b0 - o) * inv, t1 = (b1 - o) * inv per axis; tn = max of
 //         the axes' mins, tf = min of their maxes; tn = max(tn, 0);
 //         hit = tf >= tn && tn <= t_best  (bench_slab.py:52-70);
-//   bf16  the same in __nv_bfloat16 intrinsics (__hsub, __hmul, __hmin,
-//         __hmax), o, 1/d, the box and t_best rounded to bf16 (nearest
-//         even) first; then one conversion and an f32 compare:
-//         float(min(tf, t_best) - tn) >= 0  (:64-68).
+//   bf16  the same with o, 1/d, the box and t_best rounded to bf16
+//         (nearest even), every operation rounded to bf16, then
+//         float(min(tf, t_best) - tn) >= 0  (:64-68). The kernel runs it
+//         in __nv_bfloat162 instructions, children 2j and 2j + 1 in the
+//         two halves of one instruction, against a bf16 copy of the table
+//         made once before the loop (word c of the four pairs j of a half
+//         row in one 16-byte row), and takes the compare in bf16
+//         (__hge2_mask: the same as the float compare for every bf16
+//         value). Each half rounds as the scalar bf16 operation does, so
+//         every output is bit-equal to the scalar form and to the plain
+//         version. Pair j's mask & 0x10001 is already the term of sum4's
+//         sums[j] below.
 // The 8 hits pack into m = OR hit_ch << ch. Then, as :89-134:
 //   sum4  four packed sums, sums[k] = sum of h[2k] + (h[2k+1] << 16) over
 //         the packet (counts stay below 2^16): a warp __reduce_add_sync
@@ -40,17 +48,21 @@
 // from being deleted and give the plain version something to hold the
 // kernel to.
 //
-// What bounds it: issuing the slab tests, about 26 float operations a
-// child, 218 a lane and step with the packing and acc (4,096 lanes x 4,096
-// steps: 3.7e9, 55 us card-wide at 67 TFLOP/s, 7.2 ms on the one SM that
-// runs the CTA); the bytes are 0.3 MB. On an H100 a step took about 10,000
-// cycles, and the reduce added 2-14% (PERF.md). The kernel reads clock64()
-// around the loop.
+// What bounds it: issuing the slab tests. A child needs 6 subtracts and
+// 6 multiplies (the float pipe) and 11 minima and maxima, one more against
+// t_best and a compare (the ALU pipe, half the float rate on compute
+// capability 9.0); bf16 pairs do two children an instruction. Over the 32
+// warps of the 4,096-lane CTA that is 6,656 cycles a step in f32 and 3,328
+// in bf16 on the one SM that runs it (bench_slab.py:needed_cycles_per_step;
+// PERF.md has the measured cycles). The bytes are 0.3 MB. The kernel reads
+// clock64() around the loop.
 //
 // Outputs: out (rows, 128) f32, stack (64,) i32, sums (4,) i32, masks
 // (64, rows, 128) u8 (zero where fewer than 64 steps ran), cycles (1,) i64.
 
 #include <cuda_bf16.h>
+
+#include <cstring>
 
 #include "probe_common.cuh"
 
@@ -80,29 +92,40 @@ __device__ __forceinline__ bool slab_f32(const RayF32& r, const float* b, float 
   return (tf >= tn) & (tn <= t_best);
 }
 
-struct RayBf16 {
-  __nv_bfloat16 ox, oy, oz, ix, iy, iz;
+// a ray's bf16 values, each in both halves of a pair
+struct RayBf16x2 {
+  __nv_bfloat162 ox, oy, oz, ix, iy, iz;
 };
 
-__device__ __forceinline__ __nv_bfloat16 bf(float v) { return __float2bfloat16_rn(v); }
+__device__ __forceinline__ __nv_bfloat162 pair(float v) { return __float2bfloat162_rn(v); }
 
-__device__ __forceinline__ bool slab_bf16(const RayBf16& r, const float* b, __nv_bfloat16 t_best) {
-  const __nv_bfloat16 bx0 = bf(b[0]), by0 = bf(b[1]), bz0 = bf(b[2]);
-  const __nv_bfloat16 bx1 = bf(b[3]), by1 = bf(b[4]), bz1 = bf(b[5]);
-  __nv_bfloat16 t0 = __hmul(__hsub(bx0, r.ox), r.ix);
-  __nv_bfloat16 t1 = __hmul(__hsub(bx1, r.ox), r.ix);
-  __nv_bfloat16 tn = __hmin(t0, t1);
-  __nv_bfloat16 tf = __hmax(t0, t1);
-  t0 = __hmul(__hsub(by0, r.oy), r.iy);
-  t1 = __hmul(__hsub(by1, r.oy), r.iy);
-  tn = __hmax(tn, __hmin(t0, t1));
-  tf = __hmin(tf, __hmax(t0, t1));
-  t0 = __hmul(__hsub(bz0, r.oz), r.iz);
-  t1 = __hmul(__hsub(bz1, r.oz), r.iz);
-  tn = __hmax(tn, __hmin(t0, t1));
-  tf = __hmin(tf, __hmax(t0, t1));
-  tn = __hmax(tn, bf(0.0f));
-  return __bfloat162float(__hsub(__hmin(tf, t_best), tn)) >= 0.0f;
+__device__ __forceinline__ __nv_bfloat162 as_pair(unsigned w) {
+  __nv_bfloat162 p;
+  memcpy(&p, &w, sizeof p);
+  return p;
+}
+
+constexpr int BOX2_WORDS = TAB_ROWS * 2 * 6 * 4;  // (row, half, word c, pair j)
+
+// Children 2j (low half) and 2j + 1 (high half) of a half row against one
+// ray; box[c] is word c of the pair. Returns __hge2_mask's 0xFFFF for each
+// half that hits.
+__device__ __forceinline__ unsigned slab_bf16x2(const RayBf16x2& r, const unsigned* box,
+                                                __nv_bfloat162 t_best) {
+  __nv_bfloat162 t0 = __hmul2(__hsub2(as_pair(box[0]), r.ox), r.ix);
+  __nv_bfloat162 t1 = __hmul2(__hsub2(as_pair(box[3]), r.ox), r.ix);
+  __nv_bfloat162 tn = __hmin2(t0, t1);
+  __nv_bfloat162 tf = __hmax2(t0, t1);
+  t0 = __hmul2(__hsub2(as_pair(box[1]), r.oy), r.iy);
+  t1 = __hmul2(__hsub2(as_pair(box[4]), r.oy), r.iy);
+  tn = __hmax2(tn, __hmin2(t0, t1));
+  tf = __hmin2(tf, __hmax2(t0, t1));
+  t0 = __hmul2(__hsub2(as_pair(box[2]), r.oz), r.iz);
+  t1 = __hmul2(__hsub2(as_pair(box[5]), r.oz), r.iz);
+  tn = __hmax2(tn, __hmin2(t0, t1));
+  tf = __hmin2(tf, __hmax2(t0, t1));
+  tn = __hmax2(tn, pair(0.0f));
+  return __hge2_mask(__hsub2(__hmin2(tf, t_best), tn), pair(0.0f));
 }
 
 template <bool BF16, int RED, int LPT>
@@ -115,22 +138,31 @@ __global__ void __launch_bounds__(CTA)
                       unsigned char* __restrict__ masks, long long* __restrict__ cycles,
                       int iters) {
   __shared__ float tab_s[TAB_ROWS * TAB_COLS];
+  __shared__ __align__(16) unsigned box2_s[BF16 ? BOX2_WORDS : 4];
   __shared__ int stack[64];
   __shared__ unsigned slots[2][4][32];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5, nthreads = blockDim.x;
   const int lanes = nthreads * LPT;
   for (int f = t; f < TAB_ROWS * TAB_COLS; f += nthreads) tab_s[f] = tab[f];
+  if constexpr (BF16) {
+    for (int f = t; f < BOX2_WORDS; f += nthreads) {
+      const int j = f & 3, c = (f >> 2) % 6, half_row = f / 24;
+      const float* b = tab + (half_row >> 1) * TAB_COLS + (half_row & 1) * 64 + c;
+      const __nv_bfloat162 p = __floats2bfloat162_rn(b[16 * j], b[16 * j + 8]);
+      memcpy(&box2_s[f], &p, sizeof p);
+    }
+  }
   if (t < 64) stack[t] = t == 0 ? 1 : 0;
   for (int f = t; f < 2 * 4 * 32; f += nthreads) (&slots[0][0][0])[f] = 0;  // absent warps add 0
   RayF32 rf[LPT];
-  RayBf16 rb[LPT];
+  RayBf16x2 rb[LPT];
   float acc[LPT];
 #pragma unroll
   for (int l = 0; l < LPT; ++l) {
     const int f = l * nthreads + t;
     rf[l] = RayF32{ox_p[f], oy_p[f], oz_p[f], 1.0f / dx_p[f], 1.0f / dy_p[f], 1.0f / dz_p[f]};
-    rb[l] = RayBf16{bf(rf[l].ox), bf(rf[l].oy), bf(rf[l].oz),
-                    bf(rf[l].ix), bf(rf[l].iy), bf(rf[l].iz)};
+    rb[l] = RayBf16x2{pair(rf[l].ox), pair(rf[l].oy), pair(rf[l].oz),
+                      pair(rf[l].ix), pair(rf[l].iy), pair(rf[l].iz)};
     acc[l] = 1e30f;
   }
   unsigned sums[4] = {0, 0, 0, 0};
@@ -140,20 +172,37 @@ __global__ void __launch_bounds__(CTA)
     const int row = i & 63;
     const float* sl = tab_s + row * TAB_COLS + (i & 1) * 64;
     unsigned m[LPT];
-    __nv_bfloat16 t_best_bf[LPT];
+    unsigned pairs[LPT][4];  // bf16: pair j's hits, child 2j at bit 0, 2j + 1 at bit 16
+    if constexpr (BF16) {
+      unsigned box[6][4];
+      const uint4* b2 = reinterpret_cast<const uint4*>(box2_s) + (row * 2 + (i & 1)) * 6;
 #pragma unroll
-    for (int l = 0; l < LPT; ++l) m[l] = 0, t_best_bf[l] = bf(acc[l]);
-    // every child of every lane unrolled: the compiler keeps box words in
-    // registers across lanes and spills a few under the 64 registers a
-    // 1,024-thread CTA allows, yet this ran faster than testing one child
-    // for all lanes at a time, spill-free (PERF.md)
+      for (int c = 0; c < 6; ++c) {
+        const uint4 q = b2[c];
+        box[c][0] = q.x, box[c][1] = q.y, box[c][2] = q.z, box[c][3] = q.w;
+      }
 #pragma unroll
-    for (int l = 0; l < LPT; ++l) {
+      for (int l = 0; l < LPT; ++l) {
+        const __nv_bfloat162 t_best = pair(acc[l]);
+        unsigned x = 0;  // child 2j at bit 2j, child 2j + 1 at bit 16 + 2j
 #pragma unroll
-      for (int ch = 0; ch < 8; ++ch) {
-        const bool hit = BF16 ? slab_bf16(rb[l], sl + 8 * ch, t_best_bf[l])
-                              : slab_f32(rf[l], sl + 8 * ch, acc[l]);
-        m[l] |= (unsigned)hit << ch;
+        for (int j = 0; j < 4; ++j) {
+          const unsigned w[6] = {box[0][j], box[1][j], box[2][j], box[3][j], box[4][j], box[5][j]};
+          pairs[l][j] = slab_bf16x2(rb[l], w, t_best) & 0x00010001u;
+          x |= pairs[l][j] << (2 * j);
+        }
+        m[l] = (x & 0x55u) | ((x >> 15) & 0xAAu);
+      }
+    } else {
+      // every child of every lane unrolled: the compiler keeps box words in
+      // registers across lanes and spills a few under the 64 registers a
+      // 1,024-thread CTA allows, yet this ran faster than testing one child
+      // for all lanes at a time, spill-free (PERF.md)
+#pragma unroll
+      for (int l = 0; l < LPT; ++l) {
+        m[l] = 0;
+#pragma unroll
+        for (int ch = 0; ch < 8; ++ch) m[l] |= (unsigned)slab_f32(rf[l], sl + 8 * ch, acc[l]) << ch;
       }
     }
     if (i >= iters - 64) {
@@ -167,7 +216,8 @@ __global__ void __launch_bounds__(CTA)
         for (int k = 0; k < 4; ++k) {
           unsigned p = 0;
 #pragma unroll
-          for (int l = 0; l < LPT; ++l) p += ((m[l] >> (2 * k)) & 1u) + (((m[l] >> (2 * k + 1)) & 1u) << 16);
+          for (int l = 0; l < LPT; ++l)
+            p += BF16 ? pairs[l][k] : ((m[l] >> (2 * k)) & 1u) + (((m[l] >> (2 * k + 1)) & 1u) << 16);
           p = __reduce_add_sync(FULL_MASK, p);
           if (lane == 0) buf[k][warp] = p;
         }

@@ -23,17 +23,17 @@
 //
 // Phase B (phase_b_kernel) tests each ray's listed leaves: at most D leaves
 // of at most max_leaf triangles, Möller–Trumbore in trace.cu's arithmetic
-// (trace_math.cuh), strict t < t_best over the list in order, so the
-// earlier entry wins a tie (the JAX package's argmin rule;
+// (trace_math.cuh), strict t < t_best, the earlier triangle of a leaf and
+// then the earlier list entry winning a tie (the JAX package's argmin rule;
 // two_phase.py:400-473 computes it in XLA, so it is no TPU kernel). Its
-// plain version phase_b_closest_plain is its oracle: t, u and v are
+// plain version phase_b_closest_plain is its oracle: t, slot, u and v are
 // bit-equal.
 //
 // What bounds them: phase A is the traversal's dependent node fetches
 // without the leaf tests; it prunes only by t_max, never by a hit, so a
 // primary ray wants many more leaves than D and overflows into the one-phase
 // fallback. Phase B reads up to D * max_leaf triangles per ray in scattered
-// 36-byte gathers; the fallback is one trace.cu launch on all rays
+// 48-byte gathers (tri_vec); the fallback is one trace.cu launch on all rays
 // (non-overflow rays carry t_max = -1). Phase A over trace.cu's 4-wide
 // table (14 record levels against 24, the leaf ids from
 // SceneArrays.bvh4_child) was measured in eleven forms, with and without
@@ -44,6 +44,7 @@
 // this binary walk, one ray a thread, stays.
 
 #include "trace_math.cuh"
+
 
 namespace {
 
@@ -112,11 +113,25 @@ phase_a_kernel(const float4* __restrict__ nodes, const float* __restrict__ o,
   cnt_out[i] = c;
 }
 
+// Phase B, a ray a thread: the ray's list entries in order, four at a
+// time. The closest-hit kernel reads four entries, then the four leaves'
+// first/count, independent loads in flight together, then their triangles
+// (one 16-byte load for the four entries measured within 1% of four scalar
+// ones, PERF.md); the any-hit kernel, which stops at its first hit, reads
+// an entry's first/count only when it reaches the entry. Triangles come
+// from tri_vec (three 16-byte loads each), in order, strict t < t_best from
+// t_max, so the earlier triangle and then the earlier entry win a tie. A
+// thread's work is the sum of its leaves' triangles, so a warp's lanes stay
+// busy for about as long as each other. Measured against this and slower
+// on every batch (PERF.md): the JAX package's dense pairs
+// (two_phase.py:400-465), one list entry a lane and a group of D lanes a
+// ray with a shuffle reduce and a ballot for any hit (a warp runs as long
+// as its longest leaf, and lanes of empty entries idle), also with empty
+// entries compacted out of the lanes and with persistent warps.
 template <bool ANY_HIT>
 __global__ void __launch_bounds__(TRACE_BLOCK)
 phase_b_kernel(const int* __restrict__ node_first, const int* __restrict__ node_count,
-               const float* __restrict__ p0, const float* __restrict__ e1,
-               const float* __restrict__ e2, const int* __restrict__ lists,
+               const float4* __restrict__ tri_vec, const int* __restrict__ lists,
                const float* __restrict__ o, const float* __restrict__ d,
                const float* __restrict__ t_max, float* __restrict__ t_out,
                int* __restrict__ slot_out, float* __restrict__ u_out,
@@ -125,26 +140,39 @@ phase_b_kernel(const int* __restrict__ node_first, const int* __restrict__ node_
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const float tmax = t_max[i];
-  float t_best = tmax;
+  float t_best = tmax, best_u = 0.0f, best_v = 0.0f;
   int best_slot = -1;
-  float best_u = 0.0f, best_v = 0.0f;
-  if (!(tmax < 0.0f)) {
+  if (!(tmax < 0.0f)) {  // t_max < 0 marks a dead ray
     const Ray r = load_ray(o, d, i);
     const int* li = lists + (size_t)i * d_slots;
-    for (int j = 0; j < d_slots; ++j) {
-      const int leaf = li[j];
-      if (leaf < 0) continue;
-      const int first = __ldg(node_first + leaf);
-      const int count = __ldg(node_count + leaf);
-      for (int k = 0; k < count; ++k) {
-        float t, u, v;
-        if (triangle(p0, e1, e2, first + k, r, t, u, v) && t < t_best) {
-          t_best = t;
-          best_slot = first + k;
-          best_u = u;
-          best_v = v;
-          if (ANY_HIT) break;
+    for (int j0 = 0; j0 < d_slots; j0 += 4) {
+      int leaf[4], first[4], count[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) leaf[q] = j0 + q < d_slots ? __ldg(li + j0 + q) : -1;
+      if (!ANY_HIT) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          first[q] = leaf[q] >= 0 ? __ldg(node_first + leaf[q]) : 0;
+          count[q] = leaf[q] >= 0 ? __ldg(node_count + leaf[q]) : 0;
         }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (ANY_HIT) {
+          first[q] = leaf[q] >= 0 ? __ldg(node_first + leaf[q]) : 0;
+          count[q] = leaf[q] >= 0 ? __ldg(node_count + leaf[q]) : 0;
+        }
+        for (int k = 0; k < count[q]; ++k) {
+          float t, u, v;
+          if (triangle_vec(tri_vec, first[q] + k, r, t, u, v) && t < t_best) {
+            t_best = t;
+            best_slot = first[q] + k;
+            best_u = u;
+            best_v = v;
+            if (ANY_HIT) break;
+          }
+        }
+        if (ANY_HIT && best_slot >= 0) break;
       }
       if (ANY_HIT && best_slot >= 0) break;
     }
@@ -157,6 +185,18 @@ phase_b_kernel(const int* __restrict__ node_first, const int* __restrict__ node_
     u_out[i] = best_u;
     v_out[i] = best_v;
   }
+}
+
+template <bool ANY_HIT>
+int launch_phase_b(const void* node_first, const void* node_count, const void* tri_vec,
+                   const void* lists, const void* o, const void* d, const void* t_max,
+                   void* t_out, void* slot_out, void* u_out, void* v_out, void* occ_out,
+                   int d_slots, int n_rays, void* stream) {
+  phase_b_kernel<ANY_HIT><<<grid_for(n_rays), TRACE_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const int*)node_first, (const int*)node_count, (const float4*)tri_vec, (const int*)lists,
+      (const float*)o, (const float*)d, (const float*)t_max, (float*)t_out, (int*)slot_out,
+      (float*)u_out, (float*)v_out, (bool*)occ_out, d_slots, n_rays);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -177,31 +217,25 @@ int idk_phase_a(const void* nodes, const void* o, const void* d, const void* t_m
 }
 
 // Phase B, closest hit over the listed leaves: (n_rays,) f32 t (t_max on a
-// miss), i32 slot (-1), f32 u, f32 v. Returns cudaGetLastError().
-int idk_phase_b_closest(const void* node_first, const void* node_count, const void* p0,
-                        const void* e1, const void* e2, const void* lists, const void* o,
-                        const void* d, const void* t_max, void* t_out, void* slot_out,
-                        void* u_out, void* v_out, int d_slots, int n_rays, void* stream) {
-  phase_b_kernel<false><<<grid_for(n_rays), TRACE_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const int*)node_first, (const int*)node_count, (const float*)p0, (const float*)e1,
-      (const float*)e2, (const int*)lists, (const float*)o, (const float*)d,
-      (const float*)t_max, (float*)t_out, (int*)slot_out, (float*)u_out, (float*)v_out,
-      nullptr, d_slots, n_rays);
-  return (int)cudaGetLastError();
+// miss), i32 slot (-1), f32 u, f32 v. d_slots >= 1. Returns
+// cudaGetLastError().
+int idk_phase_b_closest(const void* node_first, const void* node_count, const void* tri_vec,
+                        const void* lists, const void* o, const void* d, const void* t_max,
+                        void* t_out, void* slot_out, void* u_out, void* v_out, int d_slots,
+                        int n_rays, void* stream) {
+  if (d_slots < 1 || n_rays < 0) return (int)cudaErrorInvalidValue;
+  return launch_phase_b<false>(node_first, node_count, tri_vec, lists, o, d, t_max, t_out,
+                               slot_out, u_out, v_out, nullptr, d_slots, n_rays, stream);
 }
 
 // Phase B, occlusion over the listed leaves: occ_out (n_rays,) bool.
-// Returns cudaGetLastError().
-int idk_phase_b_any(const void* node_first, const void* node_count, const void* p0,
-                    const void* e1, const void* e2, const void* lists, const void* o,
-                    const void* d, const void* t_max, void* occ_out, int d_slots,
-                    int n_rays, void* stream) {
-  phase_b_kernel<true><<<grid_for(n_rays), TRACE_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const int*)node_first, (const int*)node_count, (const float*)p0, (const float*)e1,
-      (const float*)e2, (const int*)lists, (const float*)o, (const float*)d,
-      (const float*)t_max, nullptr, nullptr, nullptr, nullptr, (bool*)occ_out, d_slots,
-      n_rays);
-  return (int)cudaGetLastError();
+// d_slots >= 1. Returns cudaGetLastError().
+int idk_phase_b_any(const void* node_first, const void* node_count, const void* tri_vec,
+                    const void* lists, const void* o, const void* d, const void* t_max,
+                    void* occ_out, int d_slots, int n_rays, void* stream) {
+  if (d_slots < 1 || n_rays < 0) return (int)cudaErrorInvalidValue;
+  return launch_phase_b<true>(node_first, node_count, tri_vec, lists, o, d, t_max, nullptr,
+                              nullptr, nullptr, nullptr, occ_out, d_slots, n_rays, stream);
 }
 
 }  // extern "C"

@@ -11,7 +11,8 @@ holds: a leaf id is the node index, the same in the threaded arrays and in
 `bvh_nodes` (bvh/flatten.py:bvh2_nodes), and a leaf's triangles are
 `node_first`/`node_count`. The kernels are `csrc/two_phase.cu` (phase A
 replaces the TPU kernels K5a and K5b; phase B, which the JAX package runs
-in XLA, is a second kernel) and `csrc/trace.cu` for the fallback.
+in XLA, is a second kernel, its triangles from `SceneArrays.tri_vec`) and
+`csrc/trace.cu` for the fallback.
 
 A CUDA tensor reaches the kernels or the call raises; the plain versions
 (`*_plain`) run only for tensors on the CPU and are the kernels' oracles.
@@ -51,9 +52,9 @@ def _load():
         lib.idk_phase_a.restype = ci
         lib.idk_phase_a.argtypes = [vp] * 6 + [ci, ci, vp]
         lib.idk_phase_b_closest.restype = ci
-        lib.idk_phase_b_closest.argtypes = [vp] * 13 + [ci, ci, vp]
+        lib.idk_phase_b_closest.argtypes = [vp] * 11 + [ci, ci, vp]
         lib.idk_phase_b_any.restype = ci
-        lib.idk_phase_b_any.argtypes = [vp] * 10 + [ci, ci, vp]
+        lib.idk_phase_b_any.argtypes = [vp] * 8 + [ci, ci, vp]
         _lib = lib
     return _lib
 
@@ -77,17 +78,25 @@ def _check_phase_a(scene: SceneArrays, o, d, t_max) -> torch.Tensor:
     return t_max
 
 
+def check_d_slots(d_slots: int):
+    """Raises unless D = d_slots list entries a ray is one the two phases
+    take: at least one."""
+    if d_slots < 1:
+        raise ValueError(f"phase B takes at least one list entry a ray, got d_slots={d_slots}")
+
+
 def _check_phase_b(scene: SceneArrays, lists: torch.Tensor, o, d, t_max) -> torch.Tensor:
-    """Validate phase B's inputs; returns t_max as an (R,) float32 tensor."""
+    """Validate phase B's inputs, D included, before any launch; returns
+    t_max as an (R,) float32 tensor."""
     t_max = _pt._check_rays(o, d, t_max)
     r = o.shape[0]
     if lists.dim() != 2 or lists.shape[0] != r:
         raise ValueError(f"lists must be (R, D) for R={r} rays, got {tuple(lists.shape)}")
-    i32, f32 = torch.int32, torch.float32
+    check_d_slots(lists.shape[1])
+    i32 = torch.int32
     _pt._check_tensors(o.device, {"lists": (lists, i32), "node_first": (scene.node_first, i32),
-                                  "node_count": (scene.node_count, i32),
-                                  "tri_p0": (scene.tri_p0, f32), "tri_e1": (scene.tri_e1, f32),
-                                  "tri_e2": (scene.tri_e2, f32)})
+                                  "node_count": (scene.node_count, i32)})
+    _pt._check_tri_vec(scene, o.device)
     return t_max
 
 
@@ -197,8 +206,10 @@ def phase_a(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
 
 def phase_b_closest(scene: SceneArrays, lists: torch.Tensor, o: torch.Tensor,
                     d: torch.Tensor, t_max) -> Hit:
-    """Closest hit over each ray's listed leaves (see phase_b_closest_plain)."""
+    """Closest hit over each ray's listed leaves (see phase_b_closest_plain).
+    D = lists.shape[1] must be at least 1, on either device."""
     if _pt._on_cpu(scene, o, d):
+        check_d_slots(lists.shape[1])
         return phase_b_closest_plain(scene, lists, o, d, t_max)
     t_max = _check_phase_b(scene, lists, o, d, t_max)
     r = o.shape[0]
@@ -208,10 +219,9 @@ def phase_b_closest(scene: SceneArrays, lists: torch.Tensor, o: torch.Tensor,
     v = torch.empty_like(t)
     if r:
         err = _load().idk_phase_b_closest(
-            _pt._ptr(scene.node_first), _pt._ptr(scene.node_count), _pt._ptr(scene.tri_p0),
-            _pt._ptr(scene.tri_e1), _pt._ptr(scene.tri_e2), _pt._ptr(lists), _pt._ptr(o),
-            _pt._ptr(d), _pt._ptr(t_max), _pt._ptr(t), _pt._ptr(slot), _pt._ptr(u),
-            _pt._ptr(v), lists.shape[1], r, _stream(o))
+            _pt._ptr(scene.node_first), _pt._ptr(scene.node_count), _pt._ptr(scene.tri_vec),
+            _pt._ptr(lists), _pt._ptr(o), _pt._ptr(d), _pt._ptr(t_max), _pt._ptr(t),
+            _pt._ptr(slot), _pt._ptr(u), _pt._ptr(v), lists.shape[1], r, _stream(o))
         _pt._raise_on(err, "phase_b_closest")
         phase_b_closest.launches += 1
     return Hit(t=t, slot=slot, u=u, v=v)
@@ -219,17 +229,19 @@ def phase_b_closest(scene: SceneArrays, lists: torch.Tensor, o: torch.Tensor,
 
 def phase_b_any(scene: SceneArrays, lists: torch.Tensor, o: torch.Tensor,
                 d: torch.Tensor, t_max) -> torch.Tensor:
-    """Occlusion over each ray's listed leaves, bool (R,)."""
+    """Occlusion over each ray's listed leaves, bool (R,); D as in
+    phase_b_closest."""
     if _pt._on_cpu(scene, o, d):
+        check_d_slots(lists.shape[1])
         return phase_b_any_plain(scene, lists, o, d, t_max)
     t_max = _check_phase_b(scene, lists, o, d, t_max)
     r = o.shape[0]
     occ = torch.empty(r, dtype=torch.bool, device=o.device)
     if r:
         err = _load().idk_phase_b_any(
-            _pt._ptr(scene.node_first), _pt._ptr(scene.node_count), _pt._ptr(scene.tri_p0),
-            _pt._ptr(scene.tri_e1), _pt._ptr(scene.tri_e2), _pt._ptr(lists), _pt._ptr(o),
-            _pt._ptr(d), _pt._ptr(t_max), _pt._ptr(occ), lists.shape[1], r, _stream(o))
+            _pt._ptr(scene.node_first), _pt._ptr(scene.node_count), _pt._ptr(scene.tri_vec),
+            _pt._ptr(lists), _pt._ptr(o), _pt._ptr(d), _pt._ptr(t_max), _pt._ptr(occ),
+            lists.shape[1], r, _stream(o))
         _pt._raise_on(err, "phase_b_any")
         phase_b_any.launches += 1
     return occ
@@ -240,6 +252,7 @@ def two_phase_closest(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_ma
     """Exact closest hit: phase A, phase B, then one one-phase trace for the
     rays whose lists overflowed, pruned by their phase-B t (the others carry
     t_max = -1 and leave at once). t is t_max on a miss."""
+    check_d_slots(d_slots)
     t_max = _t_max(o, t_max)
     lists, cnt = phase_a(scene, o, d, t_max, d_slots)
     hit = phase_b_closest(scene, lists, o, d, t_max)
@@ -256,6 +269,7 @@ def two_phase_any(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
                   d_slots: int = D_SLOTS) -> torch.Tensor:
     """Occlusion: phase A, phase B, then one one-phase any-hit trace for the
     rays whose lists overflowed and found no occluder."""
+    check_d_slots(d_slots)
     t_max = _t_max(o, t_max)
     lists, cnt = phase_a(scene, o, d, t_max, d_slots)
     occ = phase_b_any(scene, lists, o, d, t_max)

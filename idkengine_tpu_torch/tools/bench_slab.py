@@ -31,6 +31,10 @@ ROW_CHOICES = (1, 2, 4, 8, 16, 32, 64)
 # multiplies, 10 min/max, the clamp at 0, two compares and an and (26); 8
 # to pack the mask; 2 to update acc
 OPS_PER_LANE_STEP = 8 * 26 + 8 + 2
+# instructions one slab test needs, by pipe: 6 subtracts and 6 multiplies
+# (the float pipe); 11 minima and maxima, one more against t_best and a
+# compare (the ALU pipe). A bf16 pair instruction tests two children.
+NEEDED = {"fp32": 12, "alu": 13}
 REPS = 5
 
 _LIB = _probe.Library("bench_slab", {"idk_bench_slab": (12, 4)})
@@ -157,6 +161,18 @@ def bound(rows: int = ROWS, iters: int = ITERS) -> dict:
     lanes = rows * 128
     return _probe.bound(OPS_PER_LANE_STEP * lanes * iters,
                         64 * 128 * 4 + 7 * lanes * 4 + 64 * 4 + 16 + 64 * lanes)
+
+
+def needed_cycles_per_step(mode: str, rows: int = ROWS) -> tuple[float, str]:
+    """(cycles, pipe): the one-SM bound of a step from the instructions its
+    slab tests need (`NEEDED`; the packing of the hits, the reduce and the
+    stack work left out), at compute capability 9.0's rates
+    (`sass_count.bound_cycles`), for the kernel's CTA at `rows`."""
+    from .sass_count import bound_cycles
+
+    lpt = rows // 8 if rows > 8 else 1
+    tests = lpt * 8 // (2 if mode == "bf16" else 1)  # a thread's test instructions a step
+    return bound_cycles({pipe: n * tests for pipe, n in NEEDED.items()}, rows * 128 // lpt // 32)
 
 
 def variants(device, rows: int = ROWS, iters: int = ITERS) -> dict:

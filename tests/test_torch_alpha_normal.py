@@ -24,6 +24,8 @@ from idkengine_tpu_torch.scene import model  # noqa: E402
 from idkengine_tpu_torch.scene.procedural import make_quad  # noqa: E402
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase  # noqa: E402
 
+from test_torch_trace import jax_core  # noqa: E402,F401
+
 PORT = types.SimpleNamespace(model=model, make_quad=make_quad, SceneDatabase=SceneDatabase,
                              Camera=Camera, device="cpu")
 JAX = types.SimpleNamespace(model=j_model, make_quad=j_make_quad, SceneDatabase=JSceneDatabase,

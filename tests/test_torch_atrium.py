@@ -20,6 +20,8 @@ from idkengine_tpu_torch.render.tonemap import tonemap  # noqa: E402
 from idkengine_tpu_torch.scene.procedural import atrium  # noqa: E402
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase  # noqa: E402
 
+from test_torch_trace import jax_core  # noqa: E402,F401
+
 W, H = 40, 24
 # bench.py's main path: build settings, lights, camera and tracer settings
 BUILD = dict(max_leaf_triangle_count=12, traversal_cost=4.0, presplit_factor=0.0)

@@ -330,20 +330,88 @@ def test_phase_a_kernel_matches_plain(dev, scenes, d_slots):
     assert torch.equal(_list_sets(lists[fine]), _list_sets(p_lists[fine]))
 
 
-def test_phase_b_kernels_match_plain(dev, scenes):
-    """On the kernel's own lists: t, u, v bit-equal and slots equal (both
-    take the first of equal minima in list order); occlusion equal."""
+def tie_case(d_slots, dev, n=256, seed=0):
+    """Phase B's inputs on a scene of coincident triangles, with -1 holes
+    between list entries: (scene, lists, o, d, t_max). Every coordinate is
+    dyadic and every determinant -1/4 or -1, so each rounding form (fused
+    or not) gives the same t, u and v. Leaf 1 holds a triangle at z = 3 and
+    one at z = 2; leaf 2 two copies of that z = 2 triangle (a tie inside a
+    leaf, and with leaf 1: a tie across entries); leaf 3 a smaller one at
+    z = 1.5; leaf 4 one at z = 4; node 0 is interior. Rays leave z = 0
+    upward with slopes of 0 or +-1/16; lists draw leaves 1-4 and holes at
+    random; t_max is 3.4e38, 2 (the z = 2 ties excluded by strict <), 2.5
+    or -1 (dead)."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    p0 = np.array([[0, 0, 3], [0, 0, 2], [0, 0, 2], [0, 0, 2], [0, 0, 1.5], [0, 0, 4]], np.float32)
+    size = np.array([1, 1, 1, 1, 0.5, 1], np.float32)[:, None]
+    e1 = size * np.array([1, 0, 0], np.float32)
+    e2 = size * np.array([0, 1, 0], np.float32)
+    tri = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    tri_vec = torch.cat([tri(p0), tri(e1), tri(e2), torch.zeros((6, 3), device=dev)], 1)
+    scene = SimpleNamespace(
+        node_first=torch.tensor([0, 0, 2, 4, 5], dtype=torch.int32, device=dev),
+        node_count=torch.tensor([0, 2, 2, 1, 1], dtype=torch.int32, device=dev),
+        tri_p0=tri(p0), tri_e1=tri(e1), tri_e2=tri(e2), tri_vec=tri_vec.contiguous(),
+        max_leaf=2, bvh4_leaf_bits=5, device=tri_vec.device)
+    o = np.zeros((n, 3), np.float32)
+    o[:, :2] = rng.integers(1, 8, (n, 2)) / 32.0  # inside every triangle's corner
+    d = np.ones((n, 3), np.float32)
+    d[:, :2] = rng.integers(-1, 2, (n, 2)) / 16.0
+    lists = rng.choice(np.array([-1, 1, 2, 3, 4], np.int32), (n, d_slots),
+                       p=[0.4, 0.15, 0.15, 0.15, 0.15])
+    t_max = rng.choice(np.array([3.4e38, 2.0, 2.5, -1.0], np.float32), n)
+    return scene, torch.from_numpy(lists).to(dev), tri(o), tri(d), tri(t_max)
+
+
+@pytest.mark.parametrize("d_slots", [4, 8])
+def test_phase_b_kernels_match_plain(dev, scenes, d_slots):
+    """On phase A's lists, the same lists with -1 holes punched between
+    entries, and tie_case's coincident triangles: t, u, v bit-equal and
+    slots equal (both take the first of equal minima: the earlier triangle
+    of a leaf, the earlier list entry); occlusion equal."""
     from idkengine_tpu_torch.ops import two_phase as tp
 
     _, sc, _ = scenes
     o, d = _rays(sc, 1 << 15, 5, dev)
     t_max = torch.where(torch.arange(o.shape[0], device=dev) % 5 == 0, -1.0, 3.4e38)
-    lists, _ = tp.phase_a(sc, o, d, t_max, 8)
+    lists, _ = tp.phase_a(sc, o, d, t_max, d_slots)
+    g = torch.Generator(device=dev).manual_seed(d_slots)
+    holed = torch.where(torch.rand(lists.shape, generator=g, device=dev) < 0.3, -1, lists)
+    ties = tie_case(d_slots, dev)
+    assert (ties[1] < 0).any() and (ties[1] >= 0).any()
+    for scene, ls, o, d, t_max in ((sc, lists, o, d, t_max), (sc, holed.contiguous(), o, d, t_max),
+                                   ties):
+        before = tp.phase_b_closest.launches
+        got = tp.phase_b_closest(scene, ls, o, d, t_max)
+        torch.cuda.synchronize()
+        assert tp.phase_b_closest.launches == before + 1
+        want = tp.phase_b_closest_plain(scene, ls, o, d, t_max)
+        for k in ("t", "slot", "u", "v"):
+            assert torch.equal(getattr(got, k), getattr(want, k)), k
+        for s_tmax in (t_max, torch.where(t_max > 0, 2.0, -1.0)):
+            assert torch.equal(tp.phase_b_any(scene, ls, o, d, s_tmax),
+                               tp.phase_b_any_plain(scene, ls, o, d, s_tmax))
+    assert (want.slot == 2).any(), "the tie across entries and inside leaf 2 should show"
+
+
+@pytest.mark.parametrize("d_slots", [1, 3, 32])
+@pytest.mark.parametrize("n", [1, 33, 1000])
+def test_phase_b_kernel_list_widths(dev, scenes, d_slots, n):
+    """D that is not a multiple of 4 (entries read one by one) and one that
+    is (four at a time), at ray counts that leave a block part full."""
+    from idkengine_tpu_torch.ops import two_phase as tp
+
+    _, sc, _ = scenes
+    o, d = _rays(sc, n, 37, dev)
+    t_max = torch.where(torch.arange(n, device=dev) % 4 == 0, -1.0, 3.4e38)
+    lists, _ = tp.phase_a(sc, o, d, t_max, d_slots)
     got = tp.phase_b_closest(sc, lists, o, d, t_max)
     want = tp.phase_b_closest_plain(sc, lists, o, d, t_max)
     for k in ("t", "slot", "u", "v"):
         assert torch.equal(getattr(got, k), getattr(want, k)), k
-    s_tmax = torch.where(t_max > 0, 6.0, -1.0)
+    s_tmax = torch.where(t_max > 0, 4.0, -1.0)
     assert torch.equal(tp.phase_b_any(sc, lists, o, d, s_tmax),
                        tp.phase_b_any_plain(sc, lists, o, d, s_tmax))
 
@@ -383,6 +451,13 @@ def test_two_phase_refuses_bad_inputs(dev, scenes):
         tp.phase_b_any(sc, lists[:32], o, d, 1.0)
     with pytest.raises(ValueError):
         tp.phase_a(sc, o, d, 1.0, 0)
+    before = tp.phase_b_closest.launches, tp.phase_b_any.launches
+    empty = torch.full((64, 0), -1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="at least one list entry"):
+        tp.phase_b_closest(sc, empty, o, d, 3.4e38)
+    with pytest.raises(ValueError, match="at least one list entry"):
+        tp.phase_b_any(sc, empty, o, d, 3.4e38)
+    assert (tp.phase_b_closest.launches, tp.phase_b_any.launches) == before
     with pytest.raises(ValueError):
         tp.phase_a(sc, o.cpu(), d, 1.0)
 

@@ -37,7 +37,7 @@ from idkengine_tpu_torch.render.camera import generate_rays  # noqa: E402
 from idkengine_tpu_torch.scene.procedural import cornell_box  # noqa: E402
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase  # noqa: E402
 
-from test_torch_trace import BENCH, _port_scene, _rays  # noqa: E402
+from test_torch_trace import BENCH, _port_scene, _rays, jax_core  # noqa: E402,F401
 
 CAM = dict(position=np.array([278, 273, -800], np.float32), yaw=90.0, fov_y=38.0)
 COLOR_ATOL = 5e-5

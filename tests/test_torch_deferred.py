@@ -39,6 +39,8 @@ from idkengine_tpu_torch.scene.procedural import cornell_box  # noqa: E402
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase  # noqa: E402
 from idkengine_tpu_torch.utils import mathutil as mu  # noqa: E402
 
+from test_torch_trace import jax_core  # noqa: E402,F401
+
 W, H = 48, 32
 LIGHT = ([278, 480, 279.5], [6, 6, 6], 45.0)
 CAM = dict(position=np.array([278, 273, -800], np.float32), yaw=90.0, fov_y=38.0)

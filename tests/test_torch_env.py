@@ -34,6 +34,8 @@ from idkengine_tpu_torch.scene import hdr, model  # noqa: E402
 from idkengine_tpu_torch.scene.procedural import atrium, make_quad, texture_atrium  # noqa: E402
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase  # noqa: E402
 
+from test_torch_trace import jax_core  # noqa: E402,F401
+
 RMSE_MAX = 1e-3
 ALIAS_ERR = 1e-6
 SAMPLE_RTOL = 1e-5

@@ -29,6 +29,7 @@ from idkengine_tpu_torch.ops import trace as t_trace  # noqa: E402
 
 from test_torch_wide_bvh import BENCH, MODELS, JSceneDatabase, _rays  # noqa: E402
 from test_torch_wide_bvh import JAX_FIELDS, from_jax_scene_arrays  # noqa: E402
+from test_torch_trace import jax_core  # noqa: E402,F401
 
 N_PRIMITIVE = 100_000
 

@@ -31,6 +31,8 @@ from idkengine_tpu_torch.scene import materials, model  # noqa: E402
 from idkengine_tpu_torch.scene.procedural import atrium  # noqa: E402
 from idkengine_tpu_torch.scene.scene_db import MeshShading, SceneDatabase  # noqa: E402
 
+from test_torch_trace import jax_core  # noqa: E402,F401
+
 PORT = types.SimpleNamespace(model=model, atrium=atrium, SceneDatabase=SceneDatabase)
 JAX = types.SimpleNamespace(model=j_model, atrium=j_atrium, SceneDatabase=JSceneDatabase)
 W, H = 40, 24

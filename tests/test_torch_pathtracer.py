@@ -18,6 +18,8 @@ from idkengine_tpu_torch.render import Camera, PathTracer, PathTracerSettings  #
 from idkengine_tpu_torch.scene.procedural import cornell_box  # noqa: E402
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase  # noqa: E402
 
+from test_torch_trace import jax_core  # noqa: E402,F401
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "cornell_64_4spp.npz")
 RMSE_MAX = 1e-3
 # tests/test_golden.py::_cornell_pt

@@ -47,6 +47,7 @@ from idkengine_tpu_torch.scene.procedural import atrium  # noqa: E402
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase  # noqa: E402
 
 from test_torch_atrium import BUILD, CAM, LIGHTS, SETTINGS  # noqa: E402
+from test_torch_trace import jax_core  # noqa: E402,F401
 
 W, H = 40, 24
 FRAMES = 3

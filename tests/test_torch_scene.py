@@ -14,6 +14,8 @@ from idkengine_tpu_torch.ops.trace import JAX_FIELDS, from_jax_scene_arrays  # n
 from idkengine_tpu_torch.scene.procedural import atrium, cornell_box  # noqa: E402
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase  # noqa: E402
 
+from test_torch_trace import jax_core  # noqa: E402,F401
+
 BENCH = dict(max_leaf_triangle_count=12, traversal_cost=4.0, presplit_factor=0.0)
 EXACT = ("node_min", "node_max", "node_first", "node_count", "hit_link",
          "miss_link", "tri_p0", "tri_e1", "tri_e2", "tri_uv", "tri_mat")

@@ -19,6 +19,7 @@ from idkengine_tpu.scene.scene_db import SceneDatabase as JSceneDatabase  # noqa
 from idkengine_tpu_torch.ops import packet_trace as t_pt  # noqa: E402
 
 from test_torch_trace import BENCH, _assert_same_hits, _port_scene, _rays  # noqa: E402
+from test_torch_trace import jax_core  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

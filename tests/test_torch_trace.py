@@ -6,7 +6,15 @@ test_torch_steered.py.
 Tolerance: slots equal on at least 99.9% of rays; where slots differ, both
 traces hit at the same t (a tie: the same surface point on two triangles,
 met in another order); t within 1e-5 relative.
+
+`jax_bvh_core` (and the autouse fixture `jax_core`, imported by every
+port test module that builds a JAX scene or BLAS) loads the JAX package's
+native BVH core before the module's first JAX build; see its docstring.
 """
+import fcntl
+import os
+import time
+
 import numpy as np
 import pytest
 
@@ -14,6 +22,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from idkengine_tpu.bvh import builder as j_builder  # noqa: E402
 from idkengine_tpu.bvh.builder import BuildSettings as JBuildSettings  # noqa: E402
 from idkengine_tpu.ops import packet_trace as j_pt  # noqa: E402
 from idkengine_tpu.ops import trace as j_trace  # noqa: E402
@@ -26,6 +35,57 @@ from idkengine_tpu_torch.ops.trace import JAX_FIELDS, from_jax_scene_arrays  # n
 BENCH = JBuildSettings(max_leaf_triangle_count=12, traversal_cost=4.0, presplit_factor=0.0)
 T_REL = 1e-5
 SLOT_AGREE = 0.999
+JAX_CORE_LOCK = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "build", "jax_bvh_core.lock")
+JAX_CORE_WAIT_S = 120.0
+
+
+def jax_bvh_core(wait_s: float = JAX_CORE_WAIT_S, poll_s: float = 0.5):
+    """Load the JAX package's native BVH core before a comparison builds a
+    JAX scene. The reference compiles its core on first use, in place
+    (`make`, then `ctypes.CDLL`; idkengine_tpu/bvh/builder.py `_load`), and
+    where the build fails it builds every tree with a numpy median split
+    (`_build_fallback`) whose slots are not the port's. Workers of a
+    parallel test run race there: one may load a library another is still
+    writing, or see its own `make` fail. So the port's workers take the
+    core one at a time (an fcntl.flock on build/jax_bvh_core.lock), and
+    each retries while the library is missing or fails to load, for at
+    most `wait_s` seconds; then this raises with the reason. A comparison
+    never runs against the fallback tree."""
+    os.makedirs(os.path.dirname(JAX_CORE_LOCK), exist_ok=True)
+    deadline = time.monotonic() + wait_s
+    reason = "another test worker held build/jax_bvh_core.lock"
+    with open(JAX_CORE_LOCK, "a") as lock:
+        while True:
+            try:
+                fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                break
+            except BlockingIOError:
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(f"the JAX package's BVH core is not available after "
+                                       f"{wait_s:g} s: {reason}") from None
+                time.sleep(min(poll_s, 0.05))
+        try:
+            while True:
+                try:
+                    if j_builder.native_available():
+                        return
+                    reason = "its native build (make) failed"
+                except OSError as e:  # a library another worker is still writing
+                    reason = f"its library did not load ({e})"
+                if time.monotonic() >= deadline:
+                    break
+                time.sleep(poll_s)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    raise RuntimeError(f"the JAX package's BVH core is not available after {wait_s:g} s: "
+                       f"{reason}; its numpy fallback tree would not match the port's slots")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_core():
+    """Before the module's first JAX build: jax_bvh_core()."""
+    jax_bvh_core()
 
 
 def _port_scene(jsc):
@@ -125,3 +185,18 @@ def test_cpu_tensors_take_the_plain_version(atrium_db):
     t_pt.trace_closest(sc, torch.from_numpy(o), torch.from_numpy(d), 3.4e38)
     t_pt.trace_any(sc, torch.from_numpy(o), torch.from_numpy(d), 15.0)
     assert (t_pt.trace_closest.launches, t_pt.trace_any.launches) == before
+
+
+def test_jax_core_guard_loads_the_core():
+    jax_bvh_core(wait_s=5.0)
+    assert j_builder.native_available()
+
+
+def test_jax_core_guard_fails_without_the_core(monkeypatch):
+    """Where the JAX package's core cannot be had, the guard raises with its
+    reason after its bounded wait: no comparison against the fallback tree."""
+    monkeypatch.setattr(j_builder, "native_available", lambda: False)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="BVH core is not available.*make.*fallback"):
+        jax_bvh_core(wait_s=0.3, poll_s=0.1)
+    assert time.monotonic() - t0 < 10.0

@@ -10,8 +10,11 @@ order; the port lists leaves in its own order, the JAX kernel by the
 packet's dominant sign); t within 1e-5 relative where slots agree (XLA and
 PyTorch may round the same Möller test differently in the last place).
 Occlusion equal on every ray. Against the port's own one-phase trace (same
-arithmetic), t is bit-equal where slots agree. `cnt` is compared with the port's own plain
-version only: the JAX package's tree is BVH8, its leaves are not the port's.
+arithmetic), t is bit-equal where slots agree. `cnt` is compared with the
+port's own plain version only: the JAX package's tree is BVH8, its leaves
+are not the port's. Phase B alone, on coincident triangles and lists with
+-1 holes (exact arithmetic), equals the JAX package's phase_b_closest in
+t, slot, u and v on every ray.
 """
 import numpy as np
 import pytest
@@ -26,7 +29,8 @@ from idkengine_tpu.scene.scene_db import SceneDatabase as JSceneDatabase  # noqa
 from idkengine_tpu_torch.ops import packet_trace as t_pt  # noqa: E402
 from idkengine_tpu_torch.ops import two_phase as tp  # noqa: E402
 
-from test_torch_trace import BENCH, T_REL, _port_scene, _rays  # noqa: E402
+from test_torch_cuda import tie_case  # noqa: E402
+from test_torch_trace import BENCH, T_REL, _port_scene, _rays, jax_core  # noqa: E402,F401
 
 D = 4  # small enough that lists overflow into the fallback
 
@@ -145,3 +149,60 @@ def test_cpu_tensors_take_the_plain_version(scenes):
     tp.two_phase_any(sc, o, d, 5.0)
     assert (tp.phase_a.launches, tp.phase_b_closest.launches, tp.phase_b_any.launches,
             t_pt.trace_closest.launches, t_pt.trace_any.launches) == (0, 0, 0, 0, 0)
+
+
+def _jax_leaf_tables(scene):
+    """The JAX package's phase-B tables for a port scene's leaves, leaf id =
+    node index: leaf_stack rows (N, 128) of 9 floats a triangle (p0, e1,
+    e2), leaf_first and leaf_count."""
+    first, count = scene.node_first.numpy(), scene.node_count.numpy()
+    rows = np.zeros((first.shape[0], 128), np.float32)
+    tris = torch.cat([scene.tri_p0, scene.tri_e1, scene.tri_e2], 1).numpy()
+    for leaf, (f, c) in enumerate(zip(first, count)):
+        rows[leaf, :9 * c] = tris[f:f + c].reshape(-1)
+    return jnp.asarray(rows), jnp.asarray(first), jnp.asarray(count)
+
+
+@pytest.mark.parametrize("d_slots", [4, 8])
+def test_phase_b_ties_as_jax(d_slots):
+    """Two coincident triangles in two listed leaves (and two in one leaf),
+    lists with -1 holes between entries: the port's phase B (plain on the
+    CPU) picks the same slot, t, u and v as JAX's phase_b_closest (the
+    earlier triangle of a leaf, then the earlier list entry), and the same
+    occlusion as its phase_b_any."""
+    scene, lists, o, d, t_max = tie_case(d_slots, "cpu")
+    tables = _jax_leaf_tables(scene)
+    cnt = (lists >= 0).sum(1)
+    args = [jnp.asarray(x.numpy()) for x in (lists, cnt)]
+    rays = [jnp.asarray(x.numpy()) for x in (o, d, t_max)]
+    want = j_tp.phase_b_closest(*args, *tables, *rays)
+    got = tp.phase_b_closest(scene, lists, o, d, t_max)
+    for k in ("t", "slot", "u", "v"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(want, k)),
+                                      err_msg=k)
+    slot = got.slot.numpy()
+    assert (slot == 1).any() and (slot == 2).any(), "both tied leaves should win somewhere"
+    assert not (slot == 3).any(), "the later copy inside leaf 2 never wins a tie"
+    np.testing.assert_array_equal(tp.phase_b_any(scene, lists, o, d, t_max).numpy(),
+                                  np.asarray(j_tp.phase_b_any(*args, *tables, *rays)))
+
+
+@pytest.mark.parametrize("d_slots", [0, -1])
+def test_unsupported_d_slots_refused(d_slots):
+    """The wrapper's check (the one a CUDA call runs before its launch)
+    refuses lists without entries, here on CPU tensors; so do the entry
+    points on the CPU, and the two-phase traces refuse a D below one before
+    phase A."""
+    scene, lists, o, d, t_max = tie_case(8, "cpu", n=16)
+    empty = torch.full((16, 0), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="at least one list entry"):
+        tp._check_phase_b(scene, empty, o, d, t_max)
+    for fn in (tp.phase_b_closest, tp.phase_b_any):
+        with pytest.raises(ValueError, match="at least one list entry"):
+            fn(scene, empty, o, d, t_max)
+    tp.reset_launch_counts()
+    for fn in (tp.two_phase_closest, tp.two_phase_any):
+        with pytest.raises(ValueError, match="at least one list entry"):
+            fn(scene, o, d, t_max, d_slots)
+    assert (tp.phase_a.launches, tp.phase_b_closest.launches, tp.phase_b_any.launches) == (0, 0, 0)
+    tp._check_phase_b(scene, lists, o, d, t_max)  # D = 8 passes

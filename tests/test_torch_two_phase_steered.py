@@ -24,7 +24,7 @@ from idkengine_tpu.scene.procedural import atrium as j_atrium  # noqa: E402
 from idkengine_tpu.scene.scene_db import SceneDatabase as JSceneDatabase  # noqa: E402
 from idkengine_tpu_torch.ops import two_phase as tp  # noqa: E402
 
-from test_torch_trace import BENCH, _port_scene, _rays  # noqa: E402
+from test_torch_trace import BENCH, _port_scene, _rays, jax_core  # noqa: E402,F401
 from test_torch_two_phase import D, assert_same_final_hits  # noqa: E402
 
 

@@ -28,6 +28,8 @@ from idkengine_tpu_torch.render.vxgi import VoxelGrid, VxgiSettings  # noqa: E40
 from idkengine_tpu_torch.scene.procedural import cornell_box  # noqa: E402
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase  # noqa: E402
 
+from test_torch_trace import jax_core  # noqa: E402,F401
+
 LIGHT = ([278, 480, 279.5], [6, 6, 6], 45.0)
 VX = dict(resolution=16, max_samples=4096)
 

@@ -36,6 +36,7 @@ from idkengine_tpu_torch.ops.trace import JAX_FIELDS, from_jax_scene_arrays  # n
 from idkengine_tpu_torch.ops.trace import inverse_direction  # noqa: E402
 
 from test_torch_wide_bvh import _rays  # noqa: E402
+from test_torch_trace import jax_core  # noqa: E402,F401
 
 BENCH = dict(max_leaf_triangle_count=12, traversal_cost=4.0)
 BUILDS = {  # name -> (model, build settings)

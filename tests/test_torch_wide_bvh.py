@@ -50,6 +50,8 @@ from idkengine_tpu_torch.ops.intersect import ray_aabb, ray_triangle  # noqa: E4
 from idkengine_tpu_torch.ops.trace import (JAX_FIELDS, Hit, from_jax_scene_arrays,  # noqa: E402
                                            inverse_direction)
 
+from test_torch_trace import jax_core  # noqa: E402,F401
+
 BENCH = JBuildSettings(max_leaf_triangle_count=12, traversal_cost=4.0, presplit_factor=0.0)
 T_REL = 1e-5
 SLOT_AGREE = 0.999

@@ -3,7 +3,7 @@
 batches, in turns, on one CUDA card.
 
     python3 trace_ab.py LABEL=SOURCE[@FLAGS] [LABEL=SOURCE[@FLAGS] ...] [--reps N]
-                        [--kinds trace steps phase_a]
+                        [--kinds trace steps phase_a phase_b pipeline] [--frames N]
 
 Each SOURCE is a trace.cu or a two_phase.cu (the trace_math.cuh it includes
 is looked up beside it), built with the port's nvcc flags plus FLAGS
@@ -16,7 +16,8 @@ interface is read from what it exports:
   `idk_trace_stack_limit` takes the wide tables with 5 count bits and a
   steps kernel over the six threaded arrays; one with neither, the binary
   node records (`bvh_nodes`) for every query;
-- a two_phase.cu's phase A takes the binary node records.
+- a two_phase.cu's phase A takes the binary node records, its phase B
+  tri_vec.
 
 The batches are chip_smoke.py's: the 2.8M atrium's 1920x1080 primaries
 (closest), 5-unit shadow rays from their hits (any-hit), the path-traced
@@ -25,10 +26,16 @@ frame's first bounce batch (closest), every trace of one deferred frame
 run trace_closest/trace_any on the first four kinds and
 trace_closest_steps on the debug view's rays and the primaries; two_phase.cu
 libraries run phase A (D = 8) on the primaries, the shadow rays and the
-bounce batch. Each library is held to the first library of its kind: with
-the same interface, trace results by chip_smoke.check_agreement, steps,
-t, slot, u and v equal on every ray, phase A's cnt equal on every ray and
-its list sets where cnt <= D. An older trace.cu does not round its
+bounce batch, phase B (closest on the primaries and the bounce batch,
+any-hit on the shadow rays) on the lists of the port's own phase A, and
+(`pipeline`) the two-phase PathTracerPipeline frame of chip_smoke.py's
+phase 9 with each library in the wrapper's place: one pipeline warmed up
+to its denoised frames, then --frames frames a turn on the host clock.
+Each library is held to the first library of its kind: with the same
+interface, trace results by chip_smoke.check_agreement, steps, t, slot, u
+and v equal on every ray, phase A's cnt equal on every ray and its list
+sets where cnt <= D, phase B's t, slot, u and v (occlusion) equal on every
+ray. An older trace.cu does not round its
 Möller–Trumbore test as the JAX package does (no fused multiply-adds), so
 its results are only reported: the share of rays with the first library's
 hit decision, and of those with t within 1e-5 relative. Times are
@@ -179,6 +186,86 @@ def phase_a_runner(path):
     return lambda *args: binary_phase_a(raw, *args, D_SLOTS)
 
 
+class TwoPhaseLibrary:
+    """The two-phase library at path behind the interface that
+    ops/two_phase.py's wrappers call. Swapped into the wrapper's `_lib`."""
+
+    def __init__(self, path):
+        raw = ctypes.CDLL(path)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        raw.idk_phase_a.argtypes = [vp] * 6 + [ci, ci, vp]
+        raw.idk_phase_b_closest.argtypes = [vp] * 11 + [ci, ci, vp]
+        raw.idk_phase_b_any.argtypes = [vp] * 8 + [ci, ci, vp]
+        self.idk_phase_a = raw.idk_phase_a
+        self.idk_phase_a_stack_size = raw.idk_phase_a_stack_size
+        self.idk_phase_b_closest = raw.idk_phase_b_closest
+        self.idk_phase_b_any = raw.idk_phase_b_any
+
+
+def with_two_phase(lib, fn, *args):
+    """fn(*args) with lib in ops/two_phase.py's `_lib`."""
+    from idkengine_tpu_torch.ops import two_phase as tp
+
+    saved, tp._lib = tp._lib, lib
+    try:
+        return fn(*args)
+    finally:
+        tp._lib = saved
+
+
+def phase_b_runner(lib):
+    """(kind, scene, lists, o, d, t_max) -> Hit or occlusion through lib."""
+    from idkengine_tpu_torch.ops import two_phase as tp
+
+    def run(kind, scene, lists, o, d, t_max):
+        fn = tp.phase_b_closest if kind == "trace_closest" else tp.phase_b_any
+        return with_two_phase(lib, fn, scene, lists, o, d, t_max)
+    return run
+
+
+def check_phase_b(kind, got, want, what):
+    """t, slot, u and v (occlusion) equal on every ray."""
+    import torch
+
+    if kind == "trace_any":
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: occlusion differs on {(got != want).sum().item()} rays")
+        return
+    for k in ("t", "slot", "u", "v"):
+        if not torch.equal(getattr(got, k), getattr(want, k)):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def time_pipeline(db, cam, dev, libs, frames, card):
+    """The two-phase PathTracerPipeline frame (chip_smoke.py's phase 9)
+    with each two-phase library in turns (A B ... B A): ms/frame on the
+    host clock over `frames` frames a turn, after a warm-up to its denoised
+    frames. Returns label -> [ms of each turn]."""
+    import torch
+
+    from idkengine_tpu_torch.render import (PathTracerPipeline, PathTracerSettings,
+                                            PtPipelineSettings)
+
+    settings = PathTracerSettings(ray_depth=cs.DEPTH, russian_roulette=False,
+                                  do_ray_sorting=True, sky_strength=1.0, use_two_phase=True)
+    pipe = PathTracerPipeline(db, cs.WIDTH, cs.HEIGHT, settings, PtPipelineSettings(), device=dev)
+    for _ in range(cs.DENOISE_AT):
+        pipe.render_frame(cam)
+    times = {label: [] for label in libs}
+    for label in [*libs, *reversed(libs)]:
+        with_two_phase(libs[label], pipe.render_frame, cam)  # the first frame after a swap
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            with_two_phase(libs[label], pipe.render_frame, cam)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / frames * 1e3
+        times[label].append(ms)
+        cs.log(f"# two-phase pipeline frame (denoised, {cs.WIDTH}x{cs.HEIGHT}): {label} "
+               f"{ms:.3f} ms/frame over {frames} frames; on {card}")
+    return times
+
+
 def check_steps(got, want, what):
     """Steps, t, slot, u and v equal on every ray."""
     import torch
@@ -225,9 +312,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="+", help="LABEL=SOURCE[@FLAGS]")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--kinds", nargs="+", choices=("trace", "steps", "phase_a"),
-                    default=("trace", "steps", "phase_a"),
-                    help="which kernels to time (default: all)")
+    ap.add_argument("--kinds", nargs="+",
+                    choices=("trace", "steps", "phase_a", "phase_b", "pipeline"),
+                    default=("trace", "steps", "phase_a", "phase_b"),
+                    help="what to time (default: every kernel; `pipeline` adds the two-phase "
+                         "pipeline frame)")
+    ap.add_argument("--frames", type=int, default=8, help="pipeline frames a turn")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_ab: no CUDA card", file=sys.stderr)
@@ -247,10 +337,11 @@ def main(argv=None):
         for line in out.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill")):
                 cs.log(f"#   {label} {' '.join(flags)}: {line.strip()}")
-    traces, phase_as = {}, {}
+    traces, phase_as, two_phase_paths = {}, {}, {}
     for (label, source, _), (path, _) in zip(specs, built):
         if os.path.basename(source).startswith("two_phase"):
             phase_as[label] = phase_a_runner(path)
+            two_phase_paths[label] = path
         else:
             traces[label] = tracer(path)
 
@@ -283,6 +374,16 @@ def main(argv=None):
         faces = dict.fromkeys(phase_as, 1)
         for name in ("primary", "shadow", "bounce"):
             runs.append((f"phase_a {name}", "phase_a", batches[name][1:], fns, faces))
+    two_libs = {label: TwoPhaseLibrary(path) for label, path in two_phase_paths.items()}
+    if two_libs and "phase_b" in args.kinds:
+        from idkengine_tpu_torch.ops import two_phase as tp
+
+        fns = {label: phase_b_runner(lib) for label, lib in two_libs.items()}
+        faces = dict.fromkeys(two_libs, 1)
+        for name in ("primary", "shadow", "bounce"):
+            kind, sc, o, d, t_max = batches[name]
+            lists, _ = tp.phase_a(sc, o, d, t_max, D_SLOTS)
+            runs.append((f"phase_b {name}", kind, (sc, lists, o, d, t_max), fns, faces))
 
     times = {label: {} for label in [*traces, *phase_as]}
     for name, kind, rest, fns, faces in runs:
@@ -295,6 +396,9 @@ def main(argv=None):
             if kind == "phase_a":
                 check_phase_a(got, ref, what)
                 note = "cnt equal on every ray, list sets equal where cnt <= D"
+            elif name.startswith("phase_b"):
+                check_phase_b(kind, got, ref, what)
+                note = "t, slot, u, v (occlusion) equal on every ray"
             elif faces[label] != faces[first]:
                 same, close = report_loose(kind, got, ref)
                 note = (f"other arithmetic: hit decision equal on {same:.6f}, t within 1e-5 on "
@@ -310,6 +414,9 @@ def main(argv=None):
             ms = cs.cuda_time_ms(lambda: fns[label](kind, *rest), args.reps)
             times[label].setdefault(name, []).append(ms)
             cs.log(f"# {name} ({n_rays} rays, {kind}): {label} {ms:.4f} ms; on {card}")
+    if two_libs and "pipeline" in args.kinds:
+        for label, ms in time_pipeline(db, cam, dev, two_libs, args.frames, card).items():
+            times.setdefault(label, {})["pipeline two-phase frame"] = ms
     cs.log(json.dumps(times))
     return 0
 
