@@ -53,9 +53,10 @@ Phases (any failure raises and ends the run with a nonzero exit code):
  13. probes: the TPU microbenchmarks' ports (idkengine_tpu_torch/tools/,
      P1-P6) through their mains at the tools' default sizes, each variant's
      device time and clock64 cycles per step with the launch counts reset
-     just before; P1's one-SM bound restated from the instructions its
-     slab tests need and from its SASS (tools/sass_count.py) beside its
-     time; then each kernel against its plain
+     just before; every variant's one-SM bound restated from the
+     instructions its function needs (each tool's needed_cycles_per_step)
+     and, where its step holds no inner loop, from its SASS
+     (tools/sass_count.py) beside its time; then each kernel against its plain
      version at a reduced step count (outputs and chain state);
  14. textured frame: the 2.8M atrium with the material model of a real
      asset (scene/procedural.texture_atrium, made from --seed: textures,
@@ -1088,36 +1089,56 @@ def split_extra(prims: dict) -> tuple[dict, dict]:
     return {k: v for k, v in prims.items() if k != extra}, {extra: prims[extra]}
 
 
-def restate_slab_bound(runs, card):
-    """P1's one-SM bound restated, at the clock each variant's run of the
-    tool measured (clock64() cycles over device time), beside that run's
-    time and the first bound (float operations over 67 TFLOP/s, on one of
-    the 132 SMs): from the instructions its slab tests need
-    (bench_slab.needed_cycles_per_step, the bound P1 is held to) and from
-    its machine code (tools/sass_count.py: the step loop's warp
-    instructions by class and compute capability 9.0's rates, what the
-    compiled loop issues). Returns label -> the restated bounds' numbers."""
-    from idkengine_tpu_torch.tools import bench_slab, sass_count
+def restate_bounds(runs, card):
+    """Every probe variant's one-SM bound restated, at the clock its run of
+    the tool measured (clock64() cycles over device time), beside that
+    run's time and the first bound (float operations over 67 TFLOP/s, on
+    one of the 132 SMs): from the instructions its function needs
+    (`needed_cycles_per_step` of its module, the bound each probe is held
+    to) and, where its step loop holds no loop of its own, from its machine
+    code (tools/sass_count.py: the step loop's warp instructions by class,
+    what the compiled loop issues); both at compute capability 9.0's rates.
+    Returns probe -> label -> the restated bounds' numbers."""
+    from importlib import import_module
 
-    out = {}
-    for label, b in sass_count.restate("bench_slab").items():
-        run = runs[label]
-        cycles, ms = run["cycles_per_iter"], run["ms"]
-        clock_hz = cycles * bench_slab.ITERS / (ms * 1e-3)
-        needed, by = bench_slab.needed_cycles_per_step("bf16" if "bf16" in label else "f32")
-        needed_ms = needed * bench_slab.ITERS / clock_hz * 1e3
-        bound_ms = b["bound_cycles_per_step"] * bench_slab.ITERS / clock_hz * 1e3
-        out[label] = dict(needed_one_sm_ms=needed_ms, needed_by=by, needed_cycles_per_iter=needed,
-                          share_of_needed=needed / cycles, sass_one_sm_ms=bound_ms,
-                          sass_by=b["bound_by"], sass_cycles_per_iter=b["bound_cycles_per_step"],
-                          warp_instructions_per_iter=b["counts"], clock_hz=clock_hz)
-        log(f"# bench_slab {label}: {ms:.4f} ms ({cycles:.1f} cycles a step) against its bound "
-            f"from the instructions its slab tests need, {needed_ms:.4f} ms ({needed:.1f} cycles "
-            f"a step, by {by}; {needed / cycles:.1%} of the cycles), and from its SASS, "
-            f"{bound_ms:.4f} ms ({b['bound_cycles_per_step']:.1f} cycles, by {b['bound_by']}) "
-            f"at the measured {clock_hz / 1e9:.3f} GHz; the first bound "
-            f"{run['bound']['one_sm_ms']:.4f} ms on one SM; warp instructions a step by class "
-            f"{b['counts']}; on {card}")
+    from idkengine_tpu_torch.tools import sass_count
+
+    out, sass = {}, {}
+    for name in PROBES_WHERE:
+        probe = "bench_prims" if name == "bench_prims_extra" else name
+        module = import_module(f"idkengine_tpu_torch.tools.{probe}")
+        if probe not in sass:
+            sass[probe] = sass_count.restate(probe)
+        out[name] = {}
+        for label, run in runs[name].items():
+            unit, cycles = next((k[len("cycles_per_"):], v) for k, v in run.items()
+                                if k.startswith("cycles_per_"))
+            units = run["units"]
+            clock_hz = cycles * units / (run["ms"] * 1e-3)
+            needed, by = module.needed_cycles_per_step(label)
+            entry = dict(needed_one_sm_ms=needed * units / clock_hz * 1e3, needed_by=by,
+                         needed_cycles_per_iter=needed, share_of_needed=needed / cycles,
+                         clock_hz=clock_hz)
+            b = sass[probe].get(label, {})
+            if "bound_cycles_per_step" in b:
+                entry.update(sass_one_sm_ms=b["bound_cycles_per_step"] * units / clock_hz * 1e3,
+                             sass_by=b["bound_by"], sass_cycles_per_iter=b["bound_cycles_per_step"],
+                             warp_instructions_per_iter=b["counts"])
+                sass_text = (f"from its SASS {entry['sass_one_sm_ms']:.4f} ms "
+                             f"({b['bound_cycles_per_step']:.1f} cycles, by {b['bound_by']})")
+            elif b.get("inner_loops"):
+                sass_text = "no SASS bound (its step loop holds a loop of its own)"
+            else:
+                sass_text = "no SASS bound (the steps a pass of its loop were not found)"
+            beats = ("; the run BEATS it: a rate it assumes is taken too low" if needed > cycles
+                     else "")
+            unit = {"iter": "step", "tri-visit": "triangle visit"}.get(unit, unit)
+            log(f"# {name} {label}: {run['ms']:.4f} ms ({cycles:.1f} cycles a {unit}) against its "
+                f"bound from the instructions its function needs, {entry['needed_one_sm_ms']:.4f} "
+                f"ms ({needed:.1f} cycles, by {by}; {needed / cycles:.1%} of the cycles{beats}), "
+                f"and {sass_text}, at the measured {clock_hz / 1e9:.3f} GHz; the first bound "
+                f"{run['bound']['one_sm_ms']:.4f} ms on one SM; on {card}")
+            out[name][label] = entry
     return out
 
 
@@ -1152,7 +1173,7 @@ def phase_probes(dev, card):
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was not launched by the probes' mains")
-    restated = restate_slab_bound(runs["bench_slab"], card)
+    restated = restate_bounds(runs, card)
 
     n = PROBE_CHECK_ITERS
     checks = {"bench_slab": bench_slab.variants(dev, iters=n),
@@ -1178,7 +1199,7 @@ def phase_probes(dev, card):
             cyc = {k: c for k, c in run.items() if k.startswith("cycles_per_")}
             per[label] = dict(steps=steps, ms=ms, plain_ms=plain_ms, **v.bound, max_abs_err=err,
                               agreement=share, tool_size=dict(ms=run["ms"], **cyc, **run["bound"],
-                                                              **restated.get(label, {})))
+                                                              **restated[name][label]))
             b = run["bound"]
             log(f"# {name} {label}: at the tool's size {run['ms']:.4f} ms, "
                 f"{next(iter(cyc.values())):.1f} {next(iter(cyc))}, bound {b['bound_ms']:.6f} ms "

@@ -5,8 +5,9 @@
 // warp folds its 32 partials with an xor butterfly (16, 8, 4, 2, 1: first
 // half plus second half, and IEEE addition commutes, so every lane ends
 // with the same bits); lane 0 of each warp writes one shared-memory slot;
-// after the caller's barrier every warp folds the 32 slots the same way.
-// Built with -fmad=false, so the order is the one written here.
+// after the caller's barrier every warp folds the 32 slots the same way
+// (cta_sum_read), or one warp adds them in registers in that order
+// (slot_fold). Built with -fmad=false, so the order is the one written here.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,4 +39,27 @@ __device__ __forceinline__ void cta_sum_write(float p, float* slots) {
 // second half, after the barrier: the CTA's sum, in every thread
 __device__ __forceinline__ float cta_sum_read(const float* slots) {
   return warp_fold(slots[threadIdx.x & 31]);
+}
+
+// the second half in one warp's registers, no shuffles: the 32 slots (16-byte
+// aligned) read with broadcast 16-byte loads and added in the butterfly's
+// order (slot j plus slot j + 16, then j + 8, ...), so the sum has the bits
+// of cta_sum_read's, in every lane
+__device__ __forceinline__ float slot_fold(const float* slots) {
+  float v[32];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(slots)[q];
+    v[4 * q] = f.x, v[4 * q + 1] = f.y, v[4 * q + 2] = f.z, v[4 * q + 3] = f.w;
+  }
+  // each round's bound spelled out: a loop bounded by the round's width left
+  // v[] in local memory
+#pragma unroll
+  for (int j = 0; j < 16; ++j) v[j] = v[j] + v[j + 16];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = v[j] + v[j + 8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = v[j] + v[j + 4];
+  v[0] = v[0] + v[2], v[1] = v[1] + v[3];
+  return v[0] + v[1];
 }

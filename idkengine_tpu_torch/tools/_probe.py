@@ -33,10 +33,13 @@ class ProbeOut(NamedTuple):
 class Variant(NamedTuple):
     """One variant of a probe on inputs made from a seed: `kernel()` calls
     its wrapper (the kernel for CUDA tensors), `plain()` its plain version
-    on the same inputs, and `bound` is `bound()` of one launch."""
+    on the same inputs, `bound` is `bound()` of one launch, and `units` the
+    units of work a launch does, that its clock64() cycles are counted in
+    (steps; bench_mxu_leaf: triangle visits)."""
     kernel: Callable[[], ProbeOut]
     plain: Callable[[], ProbeOut]
     bound: dict
+    units: int
 
 
 def source(name: str) -> str:
@@ -49,19 +52,24 @@ HEADER = os.path.join(CSRC_DIR, "probe_common.cuh")  # included by every probe s
 class Library:
     """A probe's CUDA library, built into build/ and loaded at its first
     call. Every entry point takes device pointers, then ints, then the
-    stream, and returns cudaGetLastError()."""
+    stream, and returns cudaGetLastError(). `path` builds another source
+    of the same interface (its probe_common.cuh beside it) into
+    build/libidk_<name>.so."""
 
-    def __init__(self, name: str, entry_points: dict[str, tuple[int, int]]):
+    def __init__(self, name: str, entry_points: dict[str, tuple[int, int]],
+                 path: str | None = None):
         self.name = name
-        self.source = source(name)
+        self.source = path or source(name)
+        self.header = os.path.join(os.path.dirname(os.path.abspath(self.source)),
+                                   os.path.basename(HEADER))
         self.entry_points = entry_points  # C name -> (pointers, ints)
         self._lib = None
 
     def build(self) -> tuple[str, str]:
-        """Compile csrc/<name>.cu if needed. Returns (library path, compiler
+        """Compile the source if needed. Returns (library path, compiler
         output with ptxas register counts; empty when current)."""
         return build_shared_library(f"libidk_{self.name}.so", [self.source],
-                                    [find_nvcc(), *NVCC_FLAGS], headers=(HEADER,))
+                                    [find_nvcc(), *NVCC_FLAGS], headers=(self.header,))
 
     def __call__(self, fn: str, pointers: list[torch.Tensor], ints: list[int]):
         if self._lib is None:
@@ -136,6 +144,46 @@ def bound(ops: float, nbytes: float) -> dict:
                 one_sm_ms=ms * SMS)
 
 
+CTA_WARPS = CTA_THREADS // 32
+
+
+def needed_cycles(every_warp: dict, once: dict | None = None,
+                  warps: int = CTA_WARPS) -> tuple[float, str]:
+    """(cycles, what bounds it): the one-SM bound of a step whose function
+    needs `every_warp` (class -> warp instructions that each of the CTA's
+    `warps` warps issues) and `once` (class -> warp instructions that one
+    warp issues for the whole CTA, such as the fold of the warps' slots),
+    at compute capability 9.0's rates (`sass_count.bound_cycles`). The
+    once-a-CTA work is spread evenly over the warps, so the bound stays a
+    lower one."""
+    from .sass_count import bound_cycles
+
+    counts = dict(every_warp)
+    for cls, n in (once or {}).items():
+        counts[cls] = counts.get(cls, 0) + n / warps
+    return bound_cycles(counts, warps)
+
+
+def cta_sum_needed(lanes_per_thread: int) -> tuple[dict, dict]:
+    """(every warp, once a CTA): the warp instructions of one float32 CTA sum
+    in `cta_sum`'s order. Each thread adds its lanes (lanes - 1 adds); each
+    warp folds its 32 partials in a 5-round butterfly (5 shuffles, 5 adds)
+    and one lane stores the warp's sum; one warp loads the 32 slots and
+    folds them the same way (the order fixes a butterfly; a transpose of
+    the partials through shared memory is not counted)."""
+    return ({"fp32": lanes_per_thread - 1 + 5, "shfl": 5, "shared": 1},
+            {"shared": 1, "shfl": 5, "fp32": 5})
+
+
+def merge(*parts: tuple[dict, float]) -> dict:
+    """Class -> count of the parts (counts, multiplier) added."""
+    out = {}
+    for counts, times in parts:
+        for cls, n in counts.items():
+            out[cls] = out.get(cls, 0) + n * times
+    return out
+
+
 def card() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -156,13 +204,13 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run_variants(device, variants: dict, units: int, reps: int, unit: str = "iter") -> dict:
+def run_variants(device, variants: dict, reps: int, unit: str = "iter") -> dict:
     """Runs each variant's kernel (label -> Variant). On the card:
     its device time over reps launches and the SM cycles per unit of work
-    (`units` of them in one launch) that its last launch read with
+    (`Variant.units` of them in one launch) that its last launch read with
     clock64(), printed beside the card's name and power limit. On the CPU
     the plain version runs once and nothing is timed. Returns label ->
-    dict(ms, cycles_per_<unit>, bound, result)."""
+    dict(ms, cycles_per_<unit>, units, bound, result)."""
     cuda = torch.device(device).type == "cuda"
     card_name = card() if cuda else "cpu, not timed"
     results = {}
@@ -175,8 +223,9 @@ def run_variants(device, variants: dict, units: int, reps: int, unit: str = "ite
             continue
         ms = time_ms(fn, reps)
         res = fn()
-        cyc = int(res.cycles.item()) / units
+        cyc = int(res.cycles.item()) / variant.units
         print(f"[{card_name}] {label}: {ms:.4f} ms -> {cyc:.1f} cyc/{unit} "
               f"(out {float(res.out.flatten()[0]):.6g})", flush=True)
-        results[label] = {"ms": ms, f"cycles_per_{unit}": cyc, "bound": variant.bound, "result": res}
+        results[label] = {"ms": ms, f"cycles_per_{unit}": cyc, "units": variant.units,
+                          "bound": variant.bound, "result": res}
     return results

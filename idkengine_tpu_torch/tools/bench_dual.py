@@ -34,6 +34,12 @@ LABELS = {"d1": "d1   1 chain same-iter", "dd2": "dd2  2 chains same-iter",
           "dpd2": "dpd2 2 chains deferred"}
 DECAY = 0.99999
 OPS_PER_LANE_STEP = 2  # per chain: one multiply, one add of the sum
+LANES_PER_THREAD = ROWS * 128 // _probe.CTA_THREADS
+# a chain's step besides its sum (`needed_cycles_per_step`): every lane's
+# decay (one multiply), and once a CTA the row: int(s) (one conversion),
+# (row + (s & 1) + 1) & 63 (three integer instructions)
+DECAY_NEEDED = {"fp32": LANES_PER_THREAD}
+ROW_NEEDED = {"conv": 1, "alu": 3}
 REPS = 5
 
 _LIB = _probe.Library("bench_dual", {"idk_bench_dual": (4, 3)})
@@ -106,20 +112,48 @@ def bound(kind: str, iters: int = ITERS) -> dict:
     return _probe.bound(OPS_PER_LANE_STEP * n * ROWS * 128 * iters, 2 * ROWS * 128 * 4 + 4 * n)
 
 
+def needed_cycles_per_step(variant: str) -> tuple[float, str]:
+    """(cycles, pipe): the one-SM bound of a step of `variant` (a label of
+    `variants()`, `LABELS[kind]`) from the instructions the kind's function
+    needs (`_probe.needed_cycles`, compute capability
+    9.0's rates), whatever the kernel emits: for each chain one CTA sum of
+    its 4,096 lanes in `_probe.cta_sum`'s order (`_probe.cta_sum_needed`:
+    3 adds a thread, a 5-round shuffle fold a warp, one store a warp, one
+    fold of the 32 slots in one warp), every lane's decay, and the row once
+    a CTA (`DECAY_NEEDED`, `ROW_NEEDED`). Deferring the consume changes no
+    count. Left out: the loop's counter and branch, the barrier or its
+    arrive and wait, and latency (a same-step chain of shuffle rounds,
+    barrier and a second fold, which a throughput bound does not see)."""
+    kind = {v: k for k, v in LABELS.items()}.get(variant)
+    if kind is None:
+        raise ValueError(f"variant must be one of {tuple(LABELS.values())}, got {variant!r}")
+    n = KINDS[kind][0]
+    every, once = _probe.cta_sum_needed(LANES_PER_THREAD)
+    return _probe.needed_cycles(_probe.merge((every, n), (DECAY_NEEDED, n)),
+                                _probe.merge((once, n), (ROW_NEEDED, n)))
+
+
 def variants(device, iters: int = ITERS) -> dict:
     """label -> `_probe.Variant`: each of the tool's kernels at `iters`
     steps on `make_inputs(device)`."""
     x = make_inputs(device)
     return {LABELS[k]: _probe.Variant(partial(dual_loop, x, k, iters),
-                                      partial(dual_loop_plain, x, k, iters), bound(k, iters))
+                                      partial(dual_loop_plain, x, k, iters), bound(k, iters),
+                                      iters)
             for k in KINDS}
+
+
+def variants_at(device, steps: int | None = None) -> dict:
+    """Every variant the library launches, at `steps` steps (the tool's
+    size where None)."""
+    return variants(device, steps or ITERS)
 
 
 def main(argv=None, device="cuda") -> dict:
     """The tool's five kernels: time and cycles per step on the card (on
     the CPU the plain version runs and nothing is timed)."""
     del argv  # the tool takes no arguments
-    return _probe.run_variants(device, variants(device), ITERS, REPS)
+    return _probe.run_variants(device, variants(device), REPS)
 
 
 if __name__ == "__main__":

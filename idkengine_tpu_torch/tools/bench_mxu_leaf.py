@@ -25,6 +25,7 @@ import torch
 
 from . import _probe
 
+R, N_TRI, N_VISITS = 4096, 32, 256  # the tool's default rays, triangles a leaf, leaf visits
 TPR = 14  # triangles in one leaf9 row: each triangle's 9 floats stay in one row
 ROW_CHOICES = (1, 2, 4, 8, 16, 32, 64)
 # float operations per ray and triangle: Moller-Trumbore as the tool writes
@@ -33,6 +34,23 @@ ROW_CHOICES = (1, 2, 4, 8, 16, 32, 64)
 # them as 40 fused multiply-adds = 80, the sign checks 12, the division and
 # the argmin 3)
 VPU_OPS, FORM_OPS = 60, 95
+# warp instructions a ray and triangle of what each kernel's function needs,
+# by class (`needed_cycles_per_step`). vpu_moller: the float operations of
+# :108-123 (the cross product d x e2 9, det 5, s 3, u 6, q 9, v 6, t 6,
+# u + v 1) and the reciprocal of det (MUFU.RCP and 4 float instructions of
+# its IEEE refinement); on the ALU pipe |det| > 1e-12 and its select, the
+# six tests and their conjunction (2), the division's range check, the
+# update's two selects. mxu_form: four 10-term dot products (one multiply,
+# nine fused multiply-adds each), udet + vdet, t = tdet / det as above; on
+# the ALU pipe six tests, their four equalities with det > 0 and the
+# conjunction (3), the range check, the select of t, the argmin's compare
+# and two selects.
+RAY_TRI_NEEDED = {"vpu_moller": {"fp32": 45 + 4, "mufu": 1, "alu": 2 + 6 + 2 + 1 + 2},
+                  "mxu_form": {"fp32": 40 + 1 + 4, "mufu": 1, "alu": 6 + 3 + 1 + 1 + 3}}
+# a warp's loads of one triangle from shared memory, 16 bytes at a time:
+# vpu_moller's 9 floats (36 bytes: 3 loads); mxu_form's 40 features, read 4
+# adjacent triangles at a time (10 loads a triangle)
+TRI_LOADS_NEEDED = {"vpu_moller": 3, "mxu_form": 10}
 MISS_T = 1e30  # t_best of a ray that hits nothing
 # a kernel's t against its plain version's where their slots agree:
 # vpu_moller repeats the plain version's roundings; mxu_form's FFMA rounds
@@ -50,7 +68,7 @@ def nrow9(n_tri: int) -> int:
     return (n_tri + TPR - 1) // TPR
 
 
-def make_inputs(device, r: int = 4096, n_tri: int = 32, n_visits: int = 256,
+def make_inputs(device, r: int = R, n_tri: int = N_TRI, n_visits: int = N_VISITS,
                 seed: int = 0) -> dict:
     """The tool's arrays (bench_mxu_leaf.py:54-90, from default_rng(seed)):
     `leaf9`, `gfeat` and the ray planes `ox`..`dz`."""
@@ -220,7 +238,7 @@ def agreement(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(np.isclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-3, atol=1e-2).mean())
 
 
-def bound(kind: str, r: int = 4096, n_tri: int = 32, n_visits: int = 256) -> dict:
+def bound(kind: str, r: int = R, n_tri: int = N_TRI, n_visits: int = N_VISITS) -> dict:
     """`_probe.bound` of one launch: the table and the six ray planes read
     once, out, t and slot written once."""
     table = n_visits * nrow9(n_tri) * 128 if kind == "vpu_moller" else n_visits * 10 * 128
@@ -228,16 +246,42 @@ def bound(kind: str, r: int = 4096, n_tri: int = 32, n_visits: int = 256) -> dic
     return _probe.bound(ops, table * 4 + 6 * r * 4 + 3 * r * 4 + 8)
 
 
-def variants(device, r: int = 4096, n_tri: int = 32, n_visits: int = 256) -> dict:
+def needed_cycles_per_step(kind: str, r: int = R, n_tri: int = N_TRI) -> tuple[float, str]:
+    """(cycles, pipe): the one-SM bound of one triangle visit (one triangle
+    against every ray, the tool's unit) of `kind` (a label of `variants()`)
+    from the instructions the kind's
+    function needs (`RAY_TRI_NEEDED` for each of a thread's rays,
+    `TRI_LOADS_NEEDED` a warp; `_probe.needed_cycles`, compute capability
+    9.0's rates), for the kernel's CTA at r rays. mxu_form's per-visit merge
+    of the argmin into t_best (a compare and two selects a ray) is spread
+    over the visit's n_tri triangles. Left out: the staging of the tables
+    into shared memory (once per 16 or 8 visits), loop counters and
+    addresses."""
+    if kind not in RAY_TRI_NEEDED:
+        raise ValueError(f"kind must be vpu_moller or mxu_form, got {kind!r}")
+    rows = r // 128
+    lpt = rows // 8 if rows > 8 else 1
+    parts = [(RAY_TRI_NEEDED[kind], lpt), ({"shared": TRI_LOADS_NEEDED[kind]}, 1)]
+    if kind == "mxu_form":
+        parts.append(({"alu": 3}, lpt / n_tri))
+    return _probe.needed_cycles(_probe.merge(*parts), warps=rows * 128 // lpt // 32)
+
+
+def variants(device, r: int = R, n_tri: int = N_TRI, n_visits: int = N_VISITS) -> dict:
     """kind -> `_probe.Variant`: vpu_moller and mxu_form on
     `make_inputs(device, r, n_tri, n_visits)`."""
     x = make_inputs(device, r, n_tri, n_visits)
     rays = [x[k] for k in ("ox", "oy", "oz", "dx", "dy", "dz")]
     return {kind: _probe.Variant(partial(fn, x[table], *rays, n_tri, n_visits),
                                  partial(plain, x[table], *rays, n_tri, n_visits),
-                                 bound(kind, r, n_tri, n_visits))
+                                 bound(kind, r, n_tri, n_visits), n_tri * n_visits)
             for kind, fn, plain, table in (("vpu_moller", vpu_moller, vpu_moller_plain, "leaf9"),
                                            ("mxu_form", mxu_form, mxu_form_plain, "gfeat"))}
+
+
+def variants_at(device, steps: int | None = None) -> dict:
+    """Both kernels at `steps` leaf visits (the tool's size where None)."""
+    return variants(device, n_visits=steps or N_VISITS)
 
 
 def main(argv=None, device="cuda") -> dict:
@@ -247,15 +291,15 @@ def main(argv=None, device="cuda") -> dict:
     two kernels' agreement (on the CPU the plain versions run and nothing
     is timed)."""
     del argv  # the tool reads its sizes from the environment
-    r = int(os.environ.get("IDK_MXU_R", 4096))
-    n_tri = int(os.environ.get("IDK_MXU_T", 32))
-    n_visits = int(os.environ.get("IDK_MXU_VISITS", 256))
+    r = int(os.environ.get("IDK_MXU_R", R))
+    n_tri = int(os.environ.get("IDK_MXU_T", N_TRI))
+    n_visits = int(os.environ.get("IDK_MXU_VISITS", N_VISITS))
     reps = int(os.environ.get("IDK_BENCH_REPS", 20))
     if r % 128 or not n_tri <= 32:
         raise ValueError(f"IDK_MXU_R must be a multiple of 128 and IDK_MXU_T at most 32, "
                          f"got {r} and {n_tri}")
-    results = _probe.run_variants(device, variants(device, r, n_tri, n_visits),
-                                  n_tri * n_visits, reps, unit="tri-visit")
+    results = _probe.run_variants(device, variants(device, r, n_tri, n_visits), reps,
+                                  unit="tri-visit")
     a, b = (v["result"].out for v in results.values())
     share = agreement(a, b)
     print(f"agreement at R={r} T={n_tri} V={n_visits}: {share:.4f} (the form's rounding "

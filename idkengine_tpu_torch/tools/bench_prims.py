@@ -30,6 +30,7 @@ ITERS = 8192
 BODIES = ("e", "a", "a2", "b", "d", "d2", "a4")  # index = the kernel's Body
 EXTRA = "a4"
 DEFAULT_K = 16
+LANES_PER_THREAD = ROWS * 128 // _probe.CTA_THREADS
 REPS = 5
 
 _LIB = _probe.Library("bench_prims", {"idk_bench_prims": (6, 3)})
@@ -158,6 +159,56 @@ def bound(body: str, k: int = DEFAULT_K, iters: int = ITERS) -> dict:
                         (64 + 2 * ROWS) * 128 * 4 + 257 * 4)
 
 
+def needed_cycles_per_step(variant: str, k: int = DEFAULT_K) -> tuple[float, str]:
+    """(cycles, pipe): the one-SM bound of a step of `variant` (a label of
+    `variants()` at K = k, `label(body, k)`) from the instructions the
+    body's function needs (`_probe.needed_cycles`, compute capability 9.0's
+    rates), at K = k, whatever the kernel emits. Every warp needs the row
+    where the row steers its loads (a, a2, b, a4: row + 1 and & 63, 2
+    integer instructions; a4's three other rows 2 each); d and d2 steer no
+    load, so their row is once a CTA. Counted a warp:
+      e   the floor, in one thread: one shared load and one store, 5
+          integer instructions (the two indices, v + 1, row + 1, & 63);
+      a   ceil(K / 4) 16-byte broadcast loads of the table row, K adds and
+          one multiply a lane;
+      a2  the same loads, the scalar s in K adds, 1e-9 s, the test s > 0
+          and its add to the row, one add a lane (every lane needs s);
+      b   ceil(K / 32) row loads a warp from global memory, K shuffles (the
+          lane gather), K adds and one multiply a lane;
+      d   one CTA sum (`_probe.cta_sum_needed`), one multiply a lane, the
+          row: a conversion and three integer instructions;
+      d2  four CTA sums of acc * (m + 1) (a multiply a lane for m = 1..3;
+          acc * 1 is acc), one multiply a lane, the row: four conversions,
+          four ANDs, three adds of the bits, row + t + 1 and & 63 (9);
+      a4  four rows of max(K / 4, 1) loads (16 bytes at a time), their
+          adds and one multiply a lane.
+    Left out: the loop's counter and branch, barriers, and latency (e's
+    chain through shared memory; d's and d2's shuffle rounds)."""
+    body = {label(b, k): b for b in BODIES}.get(variant)
+    if body is None:
+        raise ValueError(f"no variant {variant!r} at K = {k}")
+    lpt, row = LANES_PER_THREAD, {"alu": 2}  # row + 1, & 63
+    loads = -(-k // 4)
+    if body == "e":
+        return _probe.needed_cycles({"shared": 2, "alu": 5}, warps=1)
+    if body == "a":
+        return _probe.needed_cycles({"shared": loads, "fp32": (k + 1) * lpt, **row})
+    if body == "a2":
+        return _probe.needed_cycles({"shared": loads, "fp32": k + 1 + lpt, "alu": 2 + 2})
+    if body == "b":
+        return _probe.needed_cycles({"memory": -(-k // 32), "shfl": k,
+                                     "fp32": (k + 1) * lpt, "alu": 2})
+    if body in ("d", "d2"):
+        n = 1 if body == "d" else 4
+        every, once = _probe.cta_sum_needed(lpt)
+        return _probe.needed_cycles(
+            _probe.merge((every, n), ({"fp32": lpt}, 1 + (n - 1))),
+            _probe.merge((once, n), ({"conv": n, "alu": 3 if n == 1 else 9}, 1)))
+    per_row = max(k // 4, 1)
+    return _probe.needed_cycles({"shared": 4 * -(-per_row // 4), "fp32": (4 * per_row + 1) * lpt,
+                                 "alu": 2 + 3 * 2})
+
+
 def variants(device, iters: int = ITERS, k: int = DEFAULT_K, extra: bool = False) -> dict:
     """label -> `_probe.Variant`: the bodies e, a, a2, b, d, d2 (and, with
     `extra`, a4) at K and `iters` steps on `make_inputs(device)`."""
@@ -169,8 +220,14 @@ def variants(device, iters: int = ITERS, k: int = DEFAULT_K, extra: bool = False
         kernel = (partial(prims_extra_loop, tab, x, k, iters) if b == EXTRA
                   else partial(prims_loop, tab, x, b, k, iters))
         out[label(b, k)] = _probe.Variant(kernel, partial(prims_loop_plain, tab, x, b, k, iters),
-                                          bound(b, k, iters))
+                                          bound(b, k, iters), iters)
     return out
+
+
+def variants_at(device, steps: int | None = None) -> dict:
+    """Every variant the library launches (a4 too) at the tool's K, at
+    `steps` steps (the tool's size where None)."""
+    return variants(device, steps or ITERS, extra=True)
 
 
 def main(argv=None, device="cuda") -> dict:
@@ -181,7 +238,7 @@ def main(argv=None, device="cuda") -> dict:
     argv = list(argv or [])
     k = int(argv[0]) if argv else DEFAULT_K
     extra = len(argv) > 1 and argv[1] == "extra"
-    return _probe.run_variants(device, variants(device, ITERS, k, extra), ITERS, REPS)
+    return _probe.run_variants(device, variants(device, ITERS, k, extra), REPS)
 
 
 if __name__ == "__main__":

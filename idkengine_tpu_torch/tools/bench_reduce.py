@@ -30,6 +30,17 @@ MODES = ("sum4", "orroll", "orroll_max", "sum1")
 # shifts and ORs to pack m, one reduce step, the feedback's and, convert,
 # multiply and add
 OPS_PER_LANE_STEP = 8 + 16 + 1 + 4
+# warp instructions a step of what each mode's function needs, by class
+# (`needed_cycles_per_step`): a lane's 8 masks, each a compare that writes a
+# mask (FSET) and one LOP3 that places it in m or in its packed count
+LANE_NEEDED = {"alu": 16}
+# every lane: acc += bits; bit 0 tested, 1e-6 or 0 selected, added to x
+FEEDBACK_NEEDED = {"alu": 3, "fp32": 1}
+# sum4's four packed counts: four warp sums (REDUX) and one 16-byte store
+# of them; after the barrier every warp loads the 32 warps' words (one
+# 16-byte load a lane), sums them (four REDUX) and tests each of the eight
+# 16-bit halves (8 compares, 2 moves of the predicates into bits)
+SUM4_NEEDED = {"shfl": 8, "shared": 2, "alu": 10}
 REPS = 5
 
 _LIB = _probe.Library("bench_reduce", {"idk_bench_reduce": (4, 2)})
@@ -99,20 +110,52 @@ def bound(iters: int = ITERS) -> dict:
     return _probe.bound(OPS_PER_LANE_STEP * ROWS * 128 * iters, 3 * ROWS * 128 * 4 + 8)
 
 
+def needed_cycles_per_step(mode: str) -> tuple[float, str]:
+    """(cycles, pipe): the one-SM bound of a step of `mode` (a label of
+    `variants()`) from the instructions the mode's function needs (`_probe.needed_cycles`, compute capability 9.0's
+    rates), whatever the kernel emits. Counted: every lane's masks and
+    packing (`LANE_NEEDED`; orroll_max's only in the 4 warps of row 0, the
+    lanes it reads) and feedback (`FEEDBACK_NEEDED`); the reduce: sum4's
+    (`SUM4_NEEDED`); sum1's and orroll's one REDUX and one store a warp,
+    then in every warp one load of the 32 slots and one REDUX (every lane
+    needs the result: one barrier a step); orroll_max's REDUX and store in
+    4 warps, then in every warp one 16-byte load of the 4 words and two
+    ORs. Left out: the loop's counter and branch, the barrier itself, and
+    latency (a step's chain of compares, REDUX, store, barrier, load and
+    REDUX, which a throughput bound does not see)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    lane_share = 4 / _probe.CTA_WARPS if mode == "orroll_max" else 1.0
+    parts = [(LANE_NEEDED, lane_share), (FEEDBACK_NEEDED, 1.0)]
+    if mode == "sum4":
+        parts.append((SUM4_NEEDED, 1.0))
+    elif mode == "orroll_max":
+        parts += [({"shfl": 1, "shared": 1}, lane_share), ({"shared": 1, "alu": 2}, 1.0)]
+    else:
+        parts.append(({"shfl": 2, "shared": 2}, 1.0))
+    return _probe.needed_cycles(_probe.merge(*parts))
+
+
 def variants(device, iters: int = ITERS) -> dict:
     """label -> `_probe.Variant`: each mode at `iters` steps on
     `make_inputs(device)`."""
     x = make_inputs(device)
     return {m: _probe.Variant(partial(reduce_loop, x, m, iters),
-                              partial(reduce_loop_plain, x, m, iters), bound(iters))
+                              partial(reduce_loop_plain, x, m, iters), bound(iters), iters)
             for m in MODES}
+
+
+def variants_at(device, steps: int | None = None) -> dict:
+    """Every variant the library launches, at `steps` steps (the tool's
+    size where None)."""
+    return variants(device, steps or ITERS)
 
 
 def main(argv=None, device="cuda") -> dict:
     """Each mode at the tool's size: time and cycles per step on the card
     (on the CPU the plain version runs and nothing is timed)."""
     del argv  # the tool takes no arguments
-    return _probe.run_variants(device, variants(device), ITERS, REPS)
+    return _probe.run_variants(device, variants(device), REPS)
 
 
 if __name__ == "__main__":

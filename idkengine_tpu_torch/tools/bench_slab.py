@@ -163,13 +163,22 @@ def bound(rows: int = ROWS, iters: int = ITERS) -> dict:
                         64 * 128 * 4 + 7 * lanes * 4 + 64 * 4 + 16 + 64 * lanes)
 
 
-def needed_cycles_per_step(mode: str, rows: int = ROWS) -> tuple[float, str]:
-    """(cycles, pipe): the one-SM bound of a step from the instructions its
-    slab tests need (`NEEDED`; the packing of the hits, the reduce and the
-    stack work left out), at compute capability 9.0's rates
-    (`sass_count.bound_cycles`), for the kernel's CTA at `rows`."""
+def label(rows: int, mode: str, reduce: str) -> str:
+    return f"rows={rows} {mode} reduce={reduce}"
+
+
+def needed_cycles_per_step(variant: str) -> tuple[float, str]:
+    """(cycles, pipe): the one-SM bound of a step of `variant` (a label of
+    `variants()`) from the instructions its slab tests need (`NEEDED`; the
+    packing of the hits, the reduce and the stack work left out), at
+    compute capability 9.0's rates (`sass_count.bound_cycles`), for the
+    kernel's CTA at the variant's rows."""
     from .sass_count import bound_cycles
 
+    rows, mode, reduce = variant.split()
+    rows, reduce = int(rows.removeprefix("rows=")), reduce.removeprefix("reduce=")
+    if variant != label(rows, mode, reduce) or mode not in MODES:
+        raise ValueError(f"no variant {variant!r}")
     lpt = rows // 8 if rows > 8 else 1
     tests = lpt * 8 // (2 if mode == "bf16" else 1)  # a thread's test instructions a step
     return bound_cycles({pipe: n * tests for pipe, n in NEEDED.items()}, rows * 128 // lpt // 32)
@@ -179,10 +188,16 @@ def variants(device, rows: int = ROWS, iters: int = ITERS) -> dict:
     """label -> `_probe.Variant`: the six variants at `rows` and `iters`
     steps on `make_inputs(device, rows)`."""
     args = make_inputs(device, rows)
-    return {f"rows={rows} {m} reduce={r}": _probe.Variant(
+    return {label(rows, m, r): _probe.Variant(
                 partial(slab_loop, *args, m, r, iters), partial(slab_loop_plain, *args, m, r, iters),
-                bound(rows, iters))
+                bound(rows, iters), iters)
             for m in MODES for r in REDUCES}
+
+
+def variants_at(device, steps: int | None = None) -> dict:
+    """Every variant the library launches, at `steps` steps (the tool's
+    size where None)."""
+    return variants(device, iters=steps or ITERS)
 
 
 def main(argv=None, device="cuda") -> dict:
@@ -192,7 +207,7 @@ def main(argv=None, device="cuda") -> dict:
     argv = list(argv or [])
     rows = int(argv[0]) if argv else ROWS
     iters = int(argv[1]) if len(argv) > 1 else ITERS
-    return _probe.run_variants(device, variants(device, rows, iters), iters, REPS)
+    return _probe.run_variants(device, variants(device, rows, iters), REPS)
 
 
 if __name__ == "__main__":

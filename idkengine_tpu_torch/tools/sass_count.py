@@ -35,8 +35,9 @@ so. A step loop that holds a loop of its own is reported, not bounded:
 its inner trips are not in the machine code.
 
 The count bounds what the compiled loop issues, so it grows with every
-instruction the code wastes; P1's row is held to the instructions its slab
-tests need instead (`bench_slab.needed_cycles_per_step`), printed beside it.
+instruction the code wastes; each probe is held to the instructions its
+function needs instead (its module's `needed_cycles_per_step`), printed
+beside it.
 
 On the card each bounded variant runs once more, and its clock64() cycles a
 step stand beside the bound; `ms` is the bound at the clock the run
@@ -162,7 +163,7 @@ def step_loop(instrs: list, labels: dict) -> dict:
 
 _REG = re.compile(r"\bU?R\d+\b")
 _PRED = re.compile(r"\bU?P[0-6]\b")
-_STEP = re.compile(r"^(?:IADD3|VIADD|UIADD3|IADD)\s+(U?R\d+),\s*(U?R\d+),\s*(-?0x[0-9a-f]+)")
+_STEP = re.compile(r"^(?:IADD3|VIADD|UIADD3|IADD)\s+(U?R\d+),\s*(U?R\d+)(?:\.reuse)?,\s*(-?0x[0-9a-f]+)")
 
 
 def _compared(body: list, pred: str) -> set:
@@ -184,11 +185,18 @@ def _compared(body: list, pred: str) -> set:
 
 def unroll_factor(instrs: list, start: int, end: int) -> int | None:
     """Steps a pass of the loop [start, end] makes: |c| of the add `Rk = Rk
-    + c` to a register that the compare of the loop's closing branch reads
-    (nvcc unrolls a short loop body, by 2 or 4, with a remainder loop after
-    it). None where no such add is found."""
+    + c` to a register that the compare of the loop's closing branch reads,
+    or that a register it reads is offset from (`Rj = Rk + c'`: the
+    compare tests i + 4 <= iters where the counter holds i + 3). nvcc
+    unrolls a short loop body, by 2 or 4, with a remainder loop after it;
+    a source loop of groups of steps steps by the group. None where no
+    such add is found."""
     body = [(a, p, op, t) for a, p, op, t in instrs if start <= a <= end]
     regs = _compared(body[:-1], body[-1][1].lstrip("@!"))
+    for _, _, op, text in body:
+        m = _STEP.match(text)
+        if m and m.group(1) in regs:
+            regs = regs | {m.group(2)}
     for _, _, op, text in body:
         m = _STEP.match(text)
         if m and m.group(1) == m.group(2) and m.group(1) in regs:
@@ -327,8 +335,7 @@ def main(argv=None) -> dict:
             raise SystemExit(f"sass_count: no probe {probe!r}; the probes are {PROBES}")
         module = import_module(f"{__package__}.{probe}")
         bounds = restate(probe, args.dump)
-        runs = module.variants("cuda", extra=True) if probe == "bench_prims" else None
-        runs = runs or (module.variants("cuda") if probe != "bench_mxu_leaf" else {})
+        runs = module.variants_at("cuda")
         for label, b in bounds.items():
             if "bound_cycles_per_step" not in b or label not in runs:
                 why = (f"the step loop holds {b['inner_loops']} loop(s) of its own"
@@ -339,20 +346,19 @@ def main(argv=None) -> dict:
             run = runs[label]
             ms = _probe.time_ms(run.kernel, 3)
             res = run.kernel()
-            steps = module.ITERS
+            steps = run.units
             cycles = int(res.cycles.item()) / steps
             b.update(measured_cycles_per_step=cycles, measured_ms=ms,
                      clock_hz=cycles * steps / (ms * 1e-3), old_one_sm_ms=run.bound["one_sm_ms"])
             b["bound_ms"] = b["bound_cycles_per_step"] * steps / b["clock_hz"] * 1e3
             b["share_of_bound"] = b["bound_cycles_per_step"] / cycles
-            if probe == "bench_slab":
-                needed, by = module.needed_cycles_per_step("bf16" if "bf16" in label else "f32")
-                b.update(needed_cycles_per_step=needed, needed_by=by,
-                         needed_ms=needed * steps / b["clock_hz"] * 1e3,
-                         share_of_needed=needed / cycles)
-                print(f"[{card}] {probe} {label}: the slab tests' own instructions bound a "
-                      f"step at {needed:.1f} cycles by {by}, {b['needed_ms']:.4f} ms "
-                      f"({b['share_of_needed']:.1%} of the measured cycles)", flush=True)
+            needed, by = module.needed_cycles_per_step(label)
+            b.update(needed_cycles_per_step=needed, needed_by=by,
+                     needed_ms=needed * steps / b["clock_hz"] * 1e3,
+                     share_of_needed=needed / cycles)
+            print(f"[{card}] {probe} {label}: the instructions its function needs bound a "
+                  f"step at {needed:.1f} cycles by {by}, {b['needed_ms']:.4f} ms "
+                  f"({b['share_of_needed']:.1%} of the measured cycles)", flush=True)
             note = ("" if b["share_of_bound"] <= 1.0 else
                     "; ABOVE the measured cycles: a class's rate is taken too low")
             print(f"[{card}] {probe} {label}: {cycles:.1f} cycles a step against a bound "

@@ -26,6 +26,10 @@ on which boxes it culled first (see test_torch_wide_bvh.py). The steps
 kernel walks the threaded tree in the plain version's order, so it equals
 it on every ray, from 1e8 too.
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -669,6 +673,9 @@ def test_textured_alpha_env_render_on_card_matches_cpu(dev):
 # 99.9% of the rays (the rest are ties) and t within `T_TOL` where the slots
 # agree (mxu_form's FFMA rounds once where the plain version rounds twice).
 PROBE_STEPS = 100  # more than 64, so every mask plane of the slab probe is written
+REDUCE_STEPS = (1, 2, 3, 4, 5, PROBE_STEPS, 256)  # 256: chip_smoke.py's PROBE_CHECK_ITERS
+LAUNCH_TIMEOUT_S = 300  # P3's and P4's launches, the nvcc builds and the process's start
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _probe_equal(got, want):
@@ -679,23 +686,50 @@ def _probe_equal(got, want):
 
 
 def test_reduce_probe_matches_plain(dev):
+    """Every mode at 1-5 steps (each parity of the step buffer, first and
+    second use), PROBE_STEPS and chip_smoke.py's 256."""
     from idkengine_tpu_torch.tools import bench_reduce as br
 
     x = br.make_inputs(dev, seed=11)
-    for mode in br.MODES:
-        before = br.reduce_loop.launches
-        got = br.reduce_loop(x, mode, 3 * PROBE_STEPS)
-        torch.cuda.synchronize()
-        assert br.reduce_loop.launches == before + 1
-        _probe_equal(got, br.reduce_loop_plain(x, mode, 3 * PROBE_STEPS))
+    for steps in REDUCE_STEPS:
+        for mode in br.MODES:
+            before = br.reduce_loop.launches
+            got = br.reduce_loop(x, mode, steps)
+            torch.cuda.synchronize()
+            assert br.reduce_loop.launches == before + 1
+            _probe_equal(got, br.reduce_loop_plain(x, mode, steps))
 
 
 def test_dual_probe_matches_plain(dev):
+    """Every kind at 1-5 steps (the deferred forms' barrier parities and
+    slot ring before and after it wraps), PROBE_STEPS and 256."""
     from idkengine_tpu_torch.tools import bench_dual as bd
 
     x = bd.make_inputs(dev, seed=12)
-    for kind in bd.KINDS:
-        _probe_equal(bd.dual_loop(x, kind, PROBE_STEPS), bd.dual_loop_plain(x, kind, PROBE_STEPS))
+    for steps in REDUCE_STEPS:
+        for kind in bd.KINDS:
+            _probe_equal(bd.dual_loop(x, kind, steps), bd.dual_loop_plain(x, kind, steps))
+
+
+def test_reduce_and_dual_launches_return(dev):
+    """Every mode of P3 and kind of P4 (the kernels with barrier phases of
+    their own) at 1-5, 33, 100 steps and the tools' sizes returns within
+    LAUNCH_TIMEOUT_S in a process of its own (the libraries' builds
+    included): a barrier phase that never completes fails this test, and
+    the process is killed, instead of hanging the session."""
+    code = (
+        "import torch\n"
+        "from idkengine_tpu_torch.tools import bench_dual as bd, bench_reduce as br\n"
+        "x, y = br.make_inputs('cuda'), bd.make_inputs('cuda')\n"
+        "for n in (1, 2, 3, 4, 5, 33, 100, br.ITERS):\n"
+        "    for m in br.MODES: br.reduce_loop(x, m, n)\n"
+        "for n in (1, 2, 3, 4, 5, 33, 100, bd.ITERS):\n"
+        "    for k in bd.KINDS: bd.dual_loop(y, k, n)\n"
+        "torch.cuda.synchronize()\n"
+        "print('returned')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=LAUNCH_TIMEOUT_S)
+    assert proc.returncode == 0 and proc.stdout.strip() == "returned", proc.stderr
 
 
 @pytest.mark.parametrize("k", [16, 37])  # 37: b's row load spans two warp-wide chunks

@@ -355,3 +355,74 @@ def test_variants_pair_each_wrapper_with_its_plain_version(module, kwargs, label
         for k in want.chain:
             assert torch.equal(got.chain[k], want.chain[k]), (label, k)
         assert v.bound["bound_ms"] > 0 and v.bound["bound_by"] in ("bytes", "operations")
+
+
+# One SM's four schedulers share a CTA's 32 warps, 8 each; a scheduler
+# issues one warp instruction a clock and completes a quarter of the SM's
+# rate of each class a clock: 1 float add (fp32), 0.5 ALU, 0.25 shuffles.
+@pytest.mark.parametrize("module,variant,cycles,pipe", [
+    # P1 at 32 rows: 32 slab tests a thread, 13 ALU instructions each (a
+    # bf16 pair instruction tests two children)
+    (bench_slab, "rows=32 f32 reduce=sum4", 8 * 32 * 13 / 0.5, "alu"),
+    (bench_slab, "rows=32 bf16 reduce=none", 8 * 16 * 13 / 0.5, "alu"),
+    # P3 sum4: 16 compares and placements, 3 of feedback, 10 for the halves
+    # a warp: 8 x 29 ALU instructions at 0.5 a clock
+    (bench_reduce, "sum4", 8 * (16 + 3 + 10) / 0.5, "alu"),
+    # P3 orroll_max: masks in 4 of 32 warps (16 x 4 / 32), feedback 3, ORs 2
+    (bench_reduce, "orroll_max", 8 * (16 * 4 / 32 + 3 + 2) / 0.5, "alu"),
+    # P4 d1 and dp1: 5 shuffles a warp, 5 more in one warp of 32
+    (bench_dual, bench_dual.LABELS["d1"], 8 * (5 + 5 / 32) / 0.25, "shfl"),
+    (bench_dual, bench_dual.LABELS["dp1"], 8 * (5 + 5 / 32) / 0.25, "shfl"),
+    (bench_dual, bench_dual.LABELS["dpd2"], 2 * 8 * (5 + 5 / 32) / 0.25, "shfl"),
+    # P6 a4: 4 16-byte loads, 4 x 4 adds and a multiply on each of 4 lanes,
+    # 8 integer instructions: 80 a warp, issued one a clock
+    (bench_prims, bench_prims.label("a4", 16), 8 * (4 + (16 + 1) * 4 + 8), "issue"),
+    # P2 vpu_moller: 63 instructions a ray on 4 rays a thread, 3 loads a warp
+    (bench_mxu_leaf, "vpu_moller", 8 * (4 * (49 + 1 + 13) + 3), "issue"),
+], ids=lambda v: v.split()[0] if isinstance(v, str) else None)
+def test_needed_bounds_match_hand_counts(module, variant, cycles, pipe):
+    got, by = module.needed_cycles_per_step(variant)
+    assert got == pytest.approx(cycles, rel=1e-12) and by == pipe
+
+
+def test_needed_bounds_need_no_library(monkeypatch):
+    """Every variant's needed bound comes from counts alone: with no nvcc
+    and no way to build, every probe's variants still have one."""
+    from idkengine_tpu_torch.ops import _build
+    from idkengine_tpu_torch.tools import _probe
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a needed bound tried to build or find nvcc")
+
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "find_nvcc", refuse)
+    monkeypatch.setattr(_probe, "find_nvcc", refuse)
+    monkeypatch.setattr(_probe, "build_shared_library", refuse)
+    sizes = {bench_mxu_leaf: dict(r=128, n_tri=2, n_visits=2), bench_prims: dict(extra=True)}
+    for module in (bench_slab, bench_mxu_leaf, bench_reduce, bench_dual, bench_prims):
+        name = module.__name__.rsplit(".", 1)[-1]
+        labels = module.variants("cpu", **sizes.get(module, {}))
+        for label in labels:
+            cycles, by = module.needed_cycles_per_step(label)
+            assert 0 < cycles < 1e5 and by in ("issue", "fp32", "alu", "shfl", "shared",
+                                              "memory", "conv", "mufu"), (name, label)
+
+
+@pytest.mark.parametrize("counter,compared,steps", [
+    ("IADD3 R5, R5, 0x2, RZ", "R5", 2),  # the compare reads the counter
+    ("IADD3 R5, R5, 0x4, RZ", "R4", 4),  # ... or i + 4 where the counter holds i + 3
+], ids=["counter", "offset"])
+def test_sass_steps_a_pass(counter, compared, steps):
+    """`sass_count.unroll_factor` finds the steps a pass of a step loop makes
+    from the add to the counter that the closing branch's compare reads,
+    also through a register offset from it (as nvcc emits a loop that
+    steps by a group of four)."""
+    from idkengine_tpu_torch.tools import sass_count
+
+    instrs = [(0x10, "", "FADD", "FADD R1, R1, R2"),
+              (0x20, "", "IADD3", "IADD3 R4, R5.reuse, 0x1, RZ"),
+              (0x30, "", "IADD3", counter),
+              (0x40, "", "ISETP.GE.AND", f"ISETP.GE.AND P0, PT, {compared}, UR7, PT"),
+              (0x50, "@!P0", "BRA", "BRA 0x10")]
+    assert sass_count.unroll_factor(instrs, 0x10, 0x50) == steps
