@@ -175,6 +175,38 @@ def cta_sum_needed(lanes_per_thread: int) -> tuple[dict, dict]:
             {"shared": 1, "shfl": 5, "fp32": 5})
 
 
+def scatter_rounds(n: int) -> int:
+    """Shuffles (and adds) a lane makes to fold n sums over a warp's 32 lanes
+    in a reduce-scatter: each xor round (16, 8, 4, 2, 1) sends half of the
+    sums a lane still holds, or the one it holds, and keeps the other half,
+    so after round r a lane holds max(n / 2^(r+1), 1) of them. IEEE addition
+    commutes, so a pair's sum has the same bits in both lanes, and each sum
+    ends with the butterfly's bits in the lanes that keep it. 5 for n = 1
+    and 2, 6 for n = 4."""
+    if n < 1 or n > 32 or n & (n - 1):
+        raise ValueError(f"n must be a power of two in [1, 32], got {n}")
+    rounds, held = 0, n
+    for _ in range(5):
+        rounds += max(held // 2, 1)
+        held = max(held // 2, 1)
+    return rounds
+
+
+def cta_sums_needed(n: int, lanes_per_thread: int) -> tuple[dict, dict]:
+    """(every warp, once a CTA): the warp instructions of n float32 CTA sums
+    in one step, each in `cta_sum`'s order. Each thread adds its lanes of
+    each plane (n (lanes - 1) adds); each warp folds its n partials in one
+    reduce-scatter (`scatter_rounds(n)` shuffles and adds) and stores the n
+    sums with one instruction (one lane of each group that holds a sum); one
+    warp loads the n x 32 slots (n to a lane, 16 bytes a load) and folds them
+    the same way. n = 1 is `cta_sum_needed`. The slots read transposed (the
+    first rounds in registers) trade the fold's shuffles for adds; the
+    once-a-CTA part is a 32nd of a warp's and is counted as the butterfly."""
+    f = scatter_rounds(n)
+    return ({"fp32": n * (lanes_per_thread - 1) + f, "shfl": f, "shared": 1},
+            {"shared": -(-n // 4), "shfl": f, "fp32": f})
+
+
 def merge(*parts: tuple[dict, float]) -> dict:
     """Class -> count of the parts (counts, multiplier) added."""
     out = {}

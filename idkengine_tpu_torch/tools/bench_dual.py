@@ -116,11 +116,12 @@ def needed_cycles_per_step(variant: str) -> tuple[float, str]:
     """(cycles, pipe): the one-SM bound of a step of `variant` (a label of
     `variants()`, `LABELS[kind]`) from the instructions the kind's function
     needs (`_probe.needed_cycles`, compute capability
-    9.0's rates), whatever the kernel emits: for each chain one CTA sum of
-    its 4,096 lanes in `_probe.cta_sum`'s order (`_probe.cta_sum_needed`:
-    3 adds a thread, a 5-round shuffle fold a warp, one store a warp, one
-    fold of the 32 slots in one warp), every lane's decay, and the row once
-    a CTA (`DECAY_NEEDED`, `ROW_NEEDED`). Deferring the consume changes no
+    9.0's rates), whatever the kernel emits: the n chains' CTA sums of
+    their 4,096 lanes in `_probe.cta_sum`'s order, in one step
+    (`_probe.cta_sums_needed`: 3 adds a thread and chain, one reduce-scatter
+    fold a warp, 5 shuffles for one or two chains and 6 for four, one store
+    a warp, one fold of the n x 32 slots in one warp), every lane's decay,
+    and the row once a CTA (`DECAY_NEEDED`, `ROW_NEEDED`). Deferring the consume changes no
     count. Left out: the loop's counter and branch, the barrier or its
     arrive and wait, and latency (a same-step chain of shuffle rounds,
     barrier and a second fold, which a throughput bound does not see)."""
@@ -128,9 +129,9 @@ def needed_cycles_per_step(variant: str) -> tuple[float, str]:
     if kind is None:
         raise ValueError(f"variant must be one of {tuple(LABELS.values())}, got {variant!r}")
     n = KINDS[kind][0]
-    every, once = _probe.cta_sum_needed(LANES_PER_THREAD)
-    return _probe.needed_cycles(_probe.merge((every, n), (DECAY_NEEDED, n)),
-                                _probe.merge((once, n), (ROW_NEEDED, n)))
+    every, once = _probe.cta_sums_needed(n, LANES_PER_THREAD)
+    return _probe.needed_cycles(_probe.merge((every, 1), (DECAY_NEEDED, n)),
+                                _probe.merge((once, 1), (ROW_NEEDED, n)))
 
 
 def variants(device, iters: int = ITERS) -> dict:

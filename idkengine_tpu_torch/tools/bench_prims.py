@@ -30,6 +30,7 @@ ITERS = 8192
 BODIES = ("e", "a", "a2", "b", "d", "d2", "a4")  # index = the kernel's Body
 EXTRA = "a4"
 DEFAULT_K = 16
+UNROLLED = ("a", "a2", "a4")  # the kernel unrolls their K loop at DEFAULT_K
 LANES_PER_THREAD = ROWS * 128 // _probe.CTA_THREADS
 REPS = 5
 
@@ -175,11 +176,13 @@ def needed_cycles_per_step(variant: str, k: int = DEFAULT_K) -> tuple[float, str
           and its add to the row, one add a lane (every lane needs s);
       b   ceil(K / 32) row loads a warp from global memory, K shuffles (the
           lane gather), K adds and one multiply a lane;
-      d   one CTA sum (`_probe.cta_sum_needed`), one multiply a lane, the
+      d   one CTA sum (`_probe.cta_sums_needed(1, ...)`), one multiply a lane, the
           row: a conversion and three integer instructions;
-      d2  four CTA sums of acc * (m + 1) (a multiply a lane for m = 1..3;
-          acc * 1 is acc), one multiply a lane, the row: four conversions,
-          four ANDs, three adds of the bits, row + t + 1 and & 63 (9);
+      d2  four CTA sums of acc * (m + 1) in one step
+          (`_probe.cta_sums_needed`: one reduce-scatter of 6 shuffles a
+          warp, one store; a multiply a lane for m = 1..3, acc * 1 is acc),
+          one multiply a lane, the row: four conversions, four ANDs, three
+          adds of the bits, row + t + 1 and & 63 (9);
       a4  four rows of max(K / 4, 1) loads (16 bytes at a time), their
           adds and one multiply a lane.
     Left out: the loop's counter and branch, barriers, and latency (e's
@@ -200,10 +203,10 @@ def needed_cycles_per_step(variant: str, k: int = DEFAULT_K) -> tuple[float, str
                                      "fp32": (k + 1) * lpt, "alu": 2})
     if body in ("d", "d2"):
         n = 1 if body == "d" else 4
-        every, once = _probe.cta_sum_needed(lpt)
+        every, once = _probe.cta_sums_needed(n, lpt)
         return _probe.needed_cycles(
-            _probe.merge((every, n), ({"fp32": lpt}, 1 + (n - 1))),
-            _probe.merge((once, n), ({"conv": n, "alu": 3 if n == 1 else 9}, 1)))
+            _probe.merge((every, 1), ({"fp32": lpt}, n)),
+            _probe.merge((once, 1), ({"conv": n, "alu": 3 if n == 1 else 9}, 1)))
     per_row = max(k // 4, 1)
     return _probe.needed_cycles({"shared": 4 * -(-per_row // 4), "fp32": (4 * per_row + 1) * lpt,
                                  "alu": 2 + 3 * 2})

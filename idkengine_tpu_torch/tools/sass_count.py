@@ -274,8 +274,8 @@ def probe_kernels(probe: str, sass: str) -> dict:
                                 warps)
     if probe == "bench_prims":
         found = kernels_by_label(sass, "probe_prims_kernel",
-                                 {(i,): m.label(b, m.DEFAULT_K) for i, b in enumerate(m.BODIES)},
-                                 warps)
+                                 {(i, m.DEFAULT_K if b in m.UNROLLED else 0): m.label(b, m.DEFAULT_K)
+                                  for i, b in enumerate(m.BODIES)}, warps)
         floor = m.label("e", m.DEFAULT_K)  # body e's loop runs in thread 0 alone
         if floor in found:
             found[floor] = (found[floor][0], 1)

@@ -674,7 +674,7 @@ def test_textured_alpha_env_render_on_card_matches_cpu(dev):
 # agree (mxu_form's FFMA rounds once where the plain version rounds twice).
 PROBE_STEPS = 100  # more than 64, so every mask plane of the slab probe is written
 REDUCE_STEPS = (1, 2, 3, 4, 5, PROBE_STEPS, 256)  # 256: chip_smoke.py's PROBE_CHECK_ITERS
-LAUNCH_TIMEOUT_S = 300  # P3's and P4's launches, the nvcc builds and the process's start
+LAUNCH_TIMEOUT_S = 300  # P3's, P4's and P5/P6's launches, the nvcc builds, the process's start
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -732,16 +732,34 @@ def test_reduce_and_dual_launches_return(dev):
     assert proc.returncode == 0 and proc.stdout.strip() == "returned", proc.stderr
 
 
-@pytest.mark.parametrize("k", [16, 37])  # 37: b's row load spans two warp-wide chunks
+# 16: the tool's K, unrolled in the kernel; 1, 4, 37, 128: the general path
+# (a tail of k % 4 after the 16-byte loads; b's row load spans 2 and 4
+# warp-wide chunks at 37 and 128)
+@pytest.mark.parametrize("k", [1, 4, 16, 37, 128])
 def test_prims_probe_matches_plain(dev, k):
-    from idkengine_tpu_torch.tools import bench_prims as bp
-
-    tab, x = bp.make_inputs(dev, seed=13)
-    for body in bp.BODIES:
-        loop = (bp.prims_extra_loop if body == bp.EXTRA
-                else lambda *a, body=body: bp.prims_loop(a[0], a[1], body, *a[2:]))
-        _probe_equal(loop(tab, x, k, PROBE_STEPS),
-                     bp.prims_loop_plain(tab, x, body, k, PROBE_STEPS))
+    """Every body at 1-5, PROBE_STEPS and 256 steps, in a process of its
+    own that must return within LAUNCH_TIMEOUT_S (the library's build
+    included): a barrier or warp vote that some threads skip fails this
+    test, and the process is killed, instead of hanging the session."""
+    code = (
+        "import torch\n"
+        "from idkengine_tpu_torch.tools import bench_prims as bp\n"
+        f"k, steps_all = {k}, {REDUCE_STEPS}\n"
+        "tab, x = bp.make_inputs('cuda', seed=13)\n"
+        "for steps in steps_all:\n"
+        "    for body in bp.BODIES:\n"
+        "        got = (bp.prims_extra_loop(tab, x, k, steps) if body == bp.EXTRA\n"
+        "               else bp.prims_loop(tab, x, body, k, steps))\n"
+        "        torch.cuda.synchronize()\n"
+        "        want = bp.prims_loop_plain(tab, x, body, k, steps)\n"
+        "        assert torch.equal(got.out, want.out), (body, steps)\n"
+        "        for c in want.chain:\n"
+        "            assert torch.equal(got.chain[c], want.chain[c]), (body, steps, c)\n"
+        "        assert got.cycles.item() > 0\n"
+        "print('equal')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=LAUNCH_TIMEOUT_S)
+    assert proc.returncode == 0 and proc.stdout.strip() == "equal", proc.stderr
 
 
 @pytest.mark.parametrize("rows", [1, 8, 32])

@@ -373,7 +373,9 @@ def test_variants_pair_each_wrapper_with_its_plain_version(module, kwargs, label
     # P4 d1 and dp1: 5 shuffles a warp, 5 more in one warp of 32
     (bench_dual, bench_dual.LABELS["d1"], 8 * (5 + 5 / 32) / 0.25, "shfl"),
     (bench_dual, bench_dual.LABELS["dp1"], 8 * (5 + 5 / 32) / 0.25, "shfl"),
-    (bench_dual, bench_dual.LABELS["dpd2"], 2 * 8 * (5 + 5 / 32) / 0.25, "shfl"),
+    # P4 dpd2: two sums in one reduce-scatter (`_probe.cta_sums_needed`):
+    # 6 + 5 + 8 fp32, 5 shuffles, 1 store a warp; once 1 + 5 + 5 + 2 + 6
+    (bench_dual, bench_dual.LABELS["dpd2"], 8 * (19 + 5 + 1 + 19 / 32), "issue"),
     # P6 a4: 4 16-byte loads, 4 x 4 adds and a multiply on each of 4 lanes,
     # 8 integer instructions: 80 a warp, issued one a clock
     (bench_prims, bench_prims.label("a4", 16), 8 * (4 + (16 + 1) * 4 + 8), "issue"),
