@@ -72,10 +72,30 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      shadow batches; one timed deferred frame of the textured scene with
      its per-mesh overrides; a small textured, alpha-tested, env-lit render
      on the card against the CPU's;
- 15. print the kernels' JSON line, then the result line.
+ 15. the capped kernels (trace_capped_kernel: the JAX package's traces with
+     a step cap) against their plain versions on phase 4's batches, at a
+     cap that stops most primaries early and at one above every batch's
+     p99 steps: times, bounds at the steps taken, the share of rays the cap
+     stopped;
+ 16. path-traced frames (phase 5's settings) with max_trace_steps at each
+     of phase 15's caps and with tile_size = 1920*1080/8, timed with the
+     launch counts reset just before; the tiled accumulation bit-equal to
+     phase 5's untiled one;
+ 17. the deferred frame's optional passes at full width on phase 14's
+     textured scene (its blended cloth for OIT to peel): phase 7's settings
+     alone, with each pass on alone (SSR, volumetric light, OIT, the rate
+     classifier, PCF cube maps with the map-building first frame apart,
+     render_scale=2 with TAAU), with SSR, volumetric light, OIT and the
+     classifier all on; warm frames timed with the counts reset just
+     before, each pass's launches a frame beside the base's; one frame of
+     each setting under the profiler;
+ 18. each new pass, and the path-tracer pipeline with the adaptive bounce
+     budget, rendered small on the card and on the CPU;
+ 19. print the kernels' JSON line, then the result line.
 
-The script imports nothing of JAX. Without a CUDA card it exits nonzero
-before printing any result. `--seed` (default 0) seeds the textured
+The script prints its wall time before the kernels' line. It imports
+nothing of JAX. Without a CUDA card it exits nonzero before printing any
+result. `--seed` (default 0) seeds the textured
 scene's textures.
 """
 import argparse
@@ -121,14 +141,36 @@ KERNELS_WHERE = {  # route, source and the Pallas kernels each wrapper's kernel 
     # phase B runs in XLA in the JAX package (no Pallas kernel); this is its code
     "two_phase_b": {"route": "cuda", "source": "idkengine_tpu_torch/csrc/two_phase.cu",
                     "replaces": "idkengine_tpu/ops/two_phase.py:400"},
+    # the capped walks: the JAX package's XLA traces with max_steps (no Pallas kernel)
+    "trace_closest_capped": {"route": "cuda", "source": "idkengine_tpu_torch/csrc/trace.cu",
+                             "replaces": "idkengine_tpu/ops/trace.py:122"},
+    "trace_any_capped": {"route": "cuda", "source": "idkengine_tpu_torch/csrc/trace.cu",
+                         "replaces": "idkengine_tpu/ops/trace.py:279"},
 }
+CAP_LOW = 64  # phase 15's first cap: below most primaries' binary-tree steps
+CAP_STEP = 64  # the second cap: the next multiple of this above every batch's p99
+TILE_SPLIT = 8  # phase 16's tiles: the frame's rays in eight launches
+T_REL = 1e-5  # the capped kernel's t against the plain version's (both equal so far)
+PASS_FRAMES = 3  # phase 17's timed frames a setting
+PLAIN_CHUNK = 1920 * 1080  # rays a plain trace takes at once (plain_in_chunks)
+PASS_OF_CALLER = {  # the function of the frame graph a recorded trace call was made in
+    "voxelize": "voxelize", "render_gbuffer": "G-buffer", "shade_deferred": "lighting",
+    "build_point_shadow": "pcf build", "_composite_transparency": "oit",
+    "volumetric_light": "volumetric"}
+RECORD_PASSES = {  # phase 17: the first frame whose new passes' traces are compared
+    "deferred_pcf": ("pcf build",), "deferred_all_on": ("oit", "volumetric")}
+DEFERRED_PASSES = {  # phase 17 and 18: each new pass alone
+    "ssr": dict(use_ssr=True), "volumetric": dict(use_volumetric=True),
+    "oit": dict(use_oit=True), "classifier": dict(use_classifier=True),
+    "pcf": dict(shadows="pcf"), "render_scale": dict(render_scale=2)}
+ALL_ON = dict(use_ssr=True, use_volumetric=True, use_oit=True, use_classifier=True)
 SMALL_RMSE = 1e-3  # card vs CPU render of a small atrium (golden contract)
 FAR_ORIGIN = 1e6  # the G-buffer puts sky pixels at o + d * 1e8 (render/gbuffer.py)
 VXGI_RES = 256  # bench.py:255's record and the reference's default
 DEFERRED_FRAMES = 4
-HAND_KERNELS = ("trace_kernel", "trace_steps_kernel", "scatter_max_kernel",  # __global__
-                "phase_a_kernel", "phase_b_kernel", "probe_slab_kernel",  # names in csrc/
-                "probe_vpu_kernel", "probe_form_kernel", "probe_reduce_kernel",
+HAND_KERNELS = ("trace_kernel", "trace_steps_kernel", "trace_capped_kernel",  # __global__
+                "scatter_max_kernel", "phase_a_kernel", "phase_b_kernel",  # names in csrc/
+                "probe_slab_kernel", "probe_vpu_kernel", "probe_form_kernel", "probe_reduce_kernel",
                 "probe_dual_kernel", "probe_prims_kernel")
 PT_PASSES = ("pt_sample", "denoise", "bloom", "tonemap")  # PathTracerPipeline's ranges
 DENOISE_AT = 32  # PtPipelineSettings' default: frames from 32 samples on denoise
@@ -281,7 +323,7 @@ def compare_trace(kind, scene, o, d, t_max, reps=10):
     r = o.shape[0]
     got = getattr(kern, kind)(scene, o, d, t_max)
     t0 = time.perf_counter()
-    want = getattr(plain, kind)(scene, o, d, t_max)
+    want = plain_in_chunks(kind, scene, o, d, t_max)
     torch_sync(o.device)
     plain_ms = (time.perf_counter() - t0) * 1e3
     agree, err = check_agreement(kind, got, want, f"{kind} against the plain version")
@@ -296,6 +338,26 @@ def compare_trace(kind, scene, o, d, t_max, reps=10):
     bound_ms = (ray_bytes + r * out_bytes + scene_bytes) / HBM_BYTES_PER_S * 1e3
     return got, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by="bytes", library_ms=None), agree
+
+
+def plain_in_chunks(kind, scene, o, d, t_max):
+    """The plain trace of a batch, PLAIN_CHUNK rays at a time (each ray is
+    traced alone, so the answer is the whole batch's; the chunks bound the
+    plain walk's memory on batches of many frames' rays)."""
+    import torch
+
+    from idkengine_tpu_torch.ops import trace as plain
+
+    r = o.shape[0]
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(r)
+    parts = [getattr(plain, kind)(scene, o[i:i + PLAIN_CHUNK], d[i:i + PLAIN_CHUNK],
+                                  t_max[i:i + PLAIN_CHUNK].contiguous())
+             for i in range(0, r, PLAIN_CHUNK)]
+    if len(parts) == 1:
+        return parts[0]
+    if kind == "trace_any":
+        return torch.cat(parts)
+    return type(parts[0])(*(torch.cat(f) for f in zip(*parts)))
 
 
 def steps_stats(scene, o, d, t_max):
@@ -387,6 +449,8 @@ def read_launch_counts():
     return {"trace_closest": packet_trace.trace_closest.launches,
             "trace_any": packet_trace.trace_any.launches,
             "trace_closest_steps": packet_trace.trace_closest_steps.launches,
+            "trace_closest_capped": packet_trace._closest_capped.launches,
+            "trace_any_capped": packet_trace._any_capped.launches,
             "scatter_max_dense": voxel_scatter.scatter_max_dense.launches,
             "two_phase_a": two_phase.phase_a.launches,
             "two_phase_b": two_phase.phase_b_closest.launches + two_phase.phase_b_any.launches}
@@ -569,11 +633,22 @@ def phase_deferred_frame(pipe, cam, dev, card):
     return launches
 
 
+def _calling_pass():
+    """The pass of the deferred frame graph (PASS_OF_CALLER) whose code is
+    on the stack, the innermost one."""
+    f = sys._getframe(2)
+    while f is not None and f.f_code.co_name not in PASS_OF_CALLER:
+        f = f.f_back
+    return "?" if f is None else PASS_OF_CALLER[f.f_code.co_name]
+
+
 def record_deferred_traces(pipe, cam):
-    """The trace calls (kind, scene, o, d, t_max) of one deferred frame, in
-    the order the frame makes them: the voxelizer's shadow rays, the
-    G-buffer's primaries, the lighting's shadow rays toward the lights;
-    recorded by standing in for the pipeline's trace functions."""
+    """The trace calls (pass, kind, scene, o, d, t_max) of one deferred
+    frame, in the order the frame makes them (phase 7's: the voxelizer's
+    shadow rays, the G-buffer's primaries, the lighting's shadow rays
+    toward the lights; the optional passes' between them), each with the
+    pass that made it; recorded by standing in for the pipeline's trace
+    functions."""
     from idkengine_tpu_torch.render import pipeline as pipeline_mod
 
     calls = []
@@ -582,7 +657,7 @@ def record_deferred_traces(pipe, cam):
         fn = getattr(pipeline_mod, kind)
 
         def run(scene, o, d, t_max):
-            calls.append((kind, scene, o, d, t_max))
+            calls.append((_calling_pass(), kind, scene, o, d, t_max))
             return fn(scene, o, d, t_max)
         return run
 
@@ -596,21 +671,36 @@ def record_deferred_traces(pipe, cam):
     return calls
 
 
+def compare_recorded(calls, frame, results, card, passes=None):
+    """Each recorded trace call of one deferred frame (record_deferred_traces),
+    or those of `passes` only, against its plain version: times, bounds,
+    steps per ray, added to the kernel's batches. Raises where a pass of
+    `passes` made no call."""
+    for n, (pass_, kind, scene, o, d, t_max) in enumerate(calls):
+        if passes is not None and pass_ not in passes:
+            continue
+        _, m, agree = compare_trace(kind, scene, o, d, t_max, reps=5)
+        m.update(steps_stats(scene, o, d, t_max))
+        log_batch(kind, f"{frame}'s call {n} ({pass_})", o, m, agree, f"; on {card}")
+        entry = results[kind]
+        entry["max_abs_err"] = max(entry["max_abs_err"], m["max_abs_err"])
+        call = dict(rays=o.shape[0], agreement=agree, **m)
+        entry.setdefault("deferred_frame_calls", []).append(dict(frame=frame, call=n,
+                                                                 trace_pass=pass_, **call))
+        entry["batches"].append(dict(batch=f"{frame} call {n} ({pass_})", **call))
+    made = {c[0] for c in calls}
+    for pass_ in passes or ():
+        if pass_ not in made:
+            raise AssertionError(f"{frame}: the {pass_} pass made no trace call")
+
+
 def phase_compare_deferred_traces(pipe, cam, results, card):
     """Each trace kernel against its plain version on the rays of one
     deferred frame (record_deferred_traces); times, bounds, steps per ray."""
     calls = record_deferred_traces(pipe, cam)
-    for n, (kind, scene, o, d, t_max) in enumerate(calls):
-        _, m, agree = compare_trace(kind, scene, o, d, t_max, reps=5)
-        m.update(steps_stats(scene, o, d, t_max))
-        log_batch(kind, f"deferred frame's call {n}", o, m, agree, f"; on {card}")
-        entry = results[kind]
-        entry["max_abs_err"] = max(entry["max_abs_err"], m["max_abs_err"])
-        call = dict(rays=o.shape[0], agreement=agree, **m)
-        entry.setdefault("deferred_frame_calls", []).append(call)
-        entry["batches"].append(dict(batch=f"deferred call {n}", **call))
+    compare_recorded(calls, "deferred frame", results, card)
     for kind in ("trace_closest", "trace_any"):
-        if kind not in {c[0] for c in calls}:
+        if kind not in {c[1] for c in calls}:
             raise AssertionError(f"the deferred frame made no {kind} call")
 
 
@@ -1291,7 +1381,7 @@ def record_pt_traces(pt, cam):
 def phase_textured(dev, card, seed, factor_frame, timings):
     """Phase 14: the textured frame (see the module's docstring). Returns
     the launch counts of its timed path-traced frames and of its deferred
-    frame."""
+    frame, and the textured scene's database (phase 17 renders it)."""
     import numpy as np
     import torch
 
@@ -1422,7 +1512,7 @@ def phase_textured(dev, card, seed, factor_frame, timings):
         raise AssertionError("textured deferred image is not a finite (H,W,3) array")
     if not (0.0 <= out.min().item() and out.max().item() <= 1.0 and out.std().item() > 0.01):
         raise AssertionError("textured deferred image leaves [0,1] or is flat")
-    del pipe, db, scene
+    del pipe
     torch.cuda.empty_cache()
 
     # a small textured, alpha-tested, env-lit render on the card and the CPU
@@ -1440,7 +1530,272 @@ def phase_textured(dev, card, seed, factor_frame, timings):
     if not rmse <= SMALL_RMSE:
         raise AssertionError("the card's textured render disagrees with the CPU render")
     log(f"# phase 14 (textured frame) took {time.perf_counter() - t_start:.1f} s")
+    return launches, db
+
+
+def phase_capped(scene, batches, results, card):
+    """Phase 15: the capped kernels against their plain versions on phase
+    4's batches at CAP_LOW and at a cap above every batch's p99 steps.
+    Returns (the caps, each capped kernel's numbers for the kernels' line:
+    its first batch at CAP_LOW stands for it, every batch under "batches")."""
+    import torch
+
+    from idkengine_tpu_torch.ops import packet_trace as kern
+    from idkengine_tpu_torch.ops import trace as plain
+
+    p99 = max(b["steps_p99"] for kind in ("trace_closest", "trace_any")
+              for b in results[kind]["batches"] if b["batch"] in batches)
+    caps = (CAP_LOW, (int(p99) // CAP_STEP + 1) * CAP_STEP)
+    out = {}
+    for label, (kind, o, d, t_max) in batches.items():
+        any_hit = kind == "trace_any"
+        name = f"{kind}_capped"
+        r = o.shape[0]
+        for cap in caps:
+            got = getattr(kern, kind)(scene, o, d, t_max, max_steps=cap)
+            steps = torch.zeros(r, dtype=torch.int32, device=o.device)
+            t0 = time.perf_counter()
+            want = plain._traverse(scene, o, d, t_max, any_hit, steps, cap)
+            torch_sync(o.device)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            if any_hit:
+                err = (got != (want.slot >= 0)).sum().item()
+                if err:
+                    raise AssertionError(f"{name} (cap {cap}, {label}): occlusion differs on "
+                                         f"{err} rays")
+            else:
+                for k in ("slot", "u", "v"):
+                    if not torch.equal(getattr(got, k), getattr(want, k)):
+                        raise AssertionError(f"{name} (cap {cap}, {label}): {k} differs")
+                err = ((got.t - want.t).abs() / want.t.abs().clamp(min=1e-30)).max().item()
+                if not err <= T_REL:
+                    raise AssertionError(f"{name} (cap {cap}, {label}): t differs by {err:g}")
+            # the share the cap stopped: rays that would take a step more
+            longer = torch.zeros_like(steps)
+            plain._traverse(scene, o, d, t_max, any_hit, longer, cap + 1)
+            stopped = (longer > cap).float().mean().item()
+            ms = cuda_time_ms(lambda: getattr(kern, kind)(scene, o, d, t_max, max_steps=cap), 10)
+            # rays (o, d, t_max) read once, results written once, and each
+            # 32-byte threaded record and each 36-byte triangle that a walk
+            # reads, read once (a record read again comes from L2: counted a
+            # step at a time, 57.5 steps a primary at cap 64 gave 1.17 ms,
+            # above the kernel's 0.53 ms on an H100 80GB HBM3 at 700 W)
+            visited = (torch.zeros(scene.bvh_thread.shape[0], dtype=torch.bool, device=o.device),
+                       torch.zeros(scene.tri_p0.shape[0], dtype=torch.bool, device=o.device))
+            plain._traverse(scene, o, d, t_max, any_hit, max_steps=cap, visited=visited)
+            records, tris = (int(v.sum().item()) for v in visited)
+            taken = int(steps.long().sum().item())
+            nbytes = r * 28 + r * (1 if any_hit else 16) + records * 32 + tris * 36
+            m = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
+            log(f"# {name}, {label} batch ({r} rays), cap {cap}: kernel {ms:.4f} ms, bound "
+                f"{m['bound_ms']:.4f} ms ({records} records and {tris} triangles read; "
+                f"{taken / r:.2f} steps a ray, at 32 B a step "
+                f"{(r * 28 + r * (1 if any_hit else 16) + taken * 32) / HBM_BYTES_PER_S * 1e3:.4f}"
+                f" ms), plain {plain_ms:.1f} ms; "
+                f"the cap stopped {stopped:.4f} of the rays; "
+                f"{'occlusion' if any_hit else 'slot, u, v'} equal on every ray, max "
+                f"{'differences' if any_hit else 'relative |diff| in t'} {err:g}; on {card}")
+            entry = out.setdefault(name, dict(m, batches=[]))
+            entry["max_abs_err"] = max(entry["max_abs_err"], m["max_abs_err"])
+            entry["batches"].append(dict(batch=label, cap=cap, rays=r, stopped=stopped,
+                                         steps_mean=taken / r, records_read=records,
+                                         triangles_read=tris, **m))
+    return caps, out
+
+
+def phase_capped_frames(db, scene, cam, dev, card, caps, ref):
+    """Phase 16: path-traced frames of phase 5's settings with a step cap
+    at each of phase 15's caps, and with tiles of 1920*1080/TILE_SPLIT
+    rays; TIMED_FRAMES timed frames each, the launch counts reset just
+    before them. Each tracer renders as many frames as phase 5's had (ref:
+    its image and frame count); the tiled accumulation must equal phase
+    5's bit for bit. A cap changes the image, so a capped frame is only
+    checked to be finite and to launch the capped kernels, and its RMSE
+    against phase 5's accumulation is printed, not held to a bound (phase
+    15 holds the capped kernels to the plain walk). Returns the launch
+    counts of each path."""
+    from dataclasses import replace
+
+    import torch
+
+    from idkengine_tpu_torch.render import PathTracer, PathTracerSettings
+
+    base = PathTracerSettings(ray_depth=DEPTH, russian_roulette=False, do_ray_sorting=True,
+                              sky_strength=1.0)
+    tile = WIDTH * HEIGHT // TILE_SPLIT
+    runs = {f"pathtracer_cap{cap}": dict(max_trace_steps=cap) for cap in caps}
+    runs["pathtracer_tiled"] = dict(tile_size=tile)
+    launches = {}
+    for label, kw in runs.items():
+        pt = PathTracer(scene, db.materials.soa(), db.lights.soa(), WIDTH, HEIGHT,
+                        replace(base, **kw), device=dev)
+        for _ in range(ref["frames"] - TIMED_FRAMES):
+            pt.render_frame(cam)
+        torch_sync(dev)
+        reset_all_launch_counts()
+        rays = 0.0
+        t0 = time.perf_counter()
+        for _ in range(TIMED_FRAMES):
+            img = pt.render_frame(cam)
+            rays += float(pt.last_rays_traced)
+        torch_sync(dev)
+        ms = (time.perf_counter() - t0) / TIMED_FRAMES * 1e3
+        launches[label] = read_launch_counts()
+        if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{label}: the image is not a finite (H,W,3) array")
+        rmse = ((img - ref["image"]) ** 2).mean().sqrt().item()
+        if "tile_size" in kw:
+            if not torch.equal(img, ref["image"]):
+                raise AssertionError("the tiled accumulation differs from phase 5's untiled one")
+            if launches[label]["trace_closest"] != TIMED_FRAMES * DEPTH * TILE_SPLIT:
+                raise AssertionError(f"the tiled frames made {launches[label]['trace_closest']} "
+                                     f"closest-hit launches")
+            what = f"tiles of {tile} rays, accumulation bit-equal to phase 5's"
+        else:
+            for name in ("trace_closest_capped", "trace_any_capped"):
+                if launches[label][name] == 0:
+                    raise AssertionError(f"{name} was not launched on the capped frame")
+            what = (f"max_trace_steps {kw['max_trace_steps']}, RMSE against phase 5's "
+                    f"uncapped accumulation {rmse:.4g}")
+        log(f"# {label}: {ms:.2f} ms/frame (phase 5's {ref['ms']:.2f}), "
+            f"{rays / TIMED_FRAMES / 1e6:.3f} Mrays/frame, {what}; launches in "
+            f"{TIMED_FRAMES} frames {launches[label]}; on {card}")
+        del pt
     return launches
+
+
+def _check_deferred_image(out, label):
+    import torch
+
+    if tuple(out.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: the deferred image is not a finite (H,W,3) array")
+    if not (0.0 <= out.min().item() and out.max().item() <= 1.0 and out.std().item() > 0.01):
+        raise AssertionError(f"{label}: the deferred image leaves [0,1] or is flat")
+
+
+def phase_deferred_passes(db, cam, dev, card, results):
+    """Phase 17: the deferred frame at full width on the textured scene with
+    phase 7's settings, each new pass on alone, and all of them on; one
+    frame of each setting profiled (each pass's device time, the launches,
+    the busy share; the hand kernels apart, their launches by pass from
+    each setting's counts beside the base's). The first frame of the PCF
+    setting (which builds the maps) and of the all-on setting is recorded,
+    and the trace calls of their new passes (RECORD_PASSES) are held
+    against the plain trace, each added to the kernel's batches in
+    results. Returns the launch counts of each setting's timed frames."""
+    from dataclasses import replace
+
+    import torch
+
+    from idkengine_tpu_torch.render import DeferredPipeline
+
+    runs = {"deferred_base": {}}
+    runs.update({f"deferred_{k}": kw for k, kw in DEFERRED_PASSES.items()})
+    runs["deferred_all_on"] = ALL_ON
+    launches, per_frame, frame_ms = {}, {}, {}
+    for label, kw in runs.items():
+        pipe = DeferredPipeline(db, WIDTH, HEIGHT, replace(_deferred_settings(VXGI_RES), **kw),
+                                device=dev)
+        t0 = time.perf_counter()
+        if label in RECORD_PASSES:  # warm-up; with PCF it builds the maps
+            calls = record_deferred_traces(pipe, cam)
+        else:
+            pipe.render_frame(cam)
+        torch_sync(dev)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(PASS_FRAMES):
+            out = pipe.render_frame(cam)
+        torch_sync(dev)
+        frame_ms[label] = (time.perf_counter() - t0) / PASS_FRAMES * 1e3
+        launches[label] = read_launch_counts()
+        per_frame[label] = {k: v / PASS_FRAMES for k, v in launches[label].items() if v}
+        _check_deferred_image(out, label)
+        extra = ""
+        if label != "deferred_base":
+            base = per_frame["deferred_base"]
+            extra = (f"; {frame_ms[label] - frame_ms['deferred_base']:+.2f} ms and kernel "
+                     f"launches {({k: v - base.get(k, 0) for k, v in per_frame[label].items()})} "
+                     f"a frame beside the base")
+        if "shadows" in kw:
+            builds = pipe._shadow_mgr.builds
+            if builds != len(db.lights.lights):
+                raise AssertionError(f"PCF built {builds} maps for {len(db.lights.lights)} "
+                                     f"lights over {PASS_FRAMES + 1} frames of one camera")
+            extra += (f"; first frame {first_ms:.2f} ms (builds {builds} maps of "
+                      f"6x{pipe.settings.shadow_map_res}^2 rays, faces culled against the "
+                      f"camera), then cached")
+        if kw.get("use_classifier"):
+            rate = pipe.rate_map
+            if tuple(rate.shape) != (HEIGHT // 16, WIDTH // 16) or not bool(
+                    torch.isfinite(rate).all()):
+                raise AssertionError("the rate map is not a finite tile map")
+            extra += f"; rate map mean {rate.mean().item():.4f}"
+        log(f"# {label}: {frame_ms[label]:.2f} ms/frame over {PASS_FRAMES} warm frames, "
+            f"{WIDTH}x{HEIGHT}, phase 7's settings{' + ' + str(kw) if kw else ''}, textured "
+            f"{TRIS // 1000}k-tri atrium; launches a frame {per_frame[label]}{extra}; on {card}")
+        profile_frame(lambda: pipe.render_frame(cam), f"{label} frame",
+                      lambda key: key.startswith("deferred/"))
+        del pipe
+        if label in RECORD_PASSES:
+            compare_recorded(calls, f"{label} first frame", results, card,
+                             RECORD_PASSES[label])
+            del calls
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_small_passes(dev, seed):
+    """Phase 18: each new deferred pass (SSR and OIT on the textured small
+    atrium, whose metal and blended cloth they need; the others on the
+    plain one), and the path-tracer pipeline with the adaptive bounce
+    budget, rendered at 96x54 on the card and on the CPU."""
+    import numpy as np
+
+    from idkengine_tpu_torch.bvh.builder import BuildSettings
+    from idkengine_tpu_torch.render import (Camera, DeferredPipeline, DeferredSettings2,
+                                            PathTracerPipeline, PathTracerSettings,
+                                            PtPipelineSettings)
+    from idkengine_tpu_torch.scene.procedural import atrium
+    from idkengine_tpu_torch.scene.scene_db import SceneDatabase
+
+    cam = Camera(position=np.array(CAMERA["position"], np.float32), yaw=CAMERA["yaw"],
+                 fov_y=CAMERA["fov_y"])
+
+    def small_db(device, textured):
+        if textured:
+            return textured_atrium(device, seed, 8000)[0]
+        db = SceneDatabase(BuildSettings(**BUILD))
+        db.add_model(atrium(8000))
+        db.build(device)
+        for pos, rad, r in LIGHTS:
+            db.lights.add(pos, rad, radius=r)
+        return db
+
+    renders = {f"deferred {k}": (k in ("ssr", "oit"), kw) for k, kw in DEFERRED_PASSES.items()}
+    renders["pt pipeline adaptive_rate"] = (False, None)
+    for label, (textured, kw) in renders.items():
+        imgs = []
+        for device in (dev, "cpu"):
+            db = small_db(device, textured)
+            if kw is None:
+                pipe = PathTracerPipeline(db, 96, 54, PathTracerSettings(
+                    ray_depth=DEPTH, russian_roulette=False, do_ray_sorting=True),
+                    PtPipelineSettings(adaptive_rate=True), device=device)
+                frames = 3
+            else:
+                pipe = DeferredPipeline(db, 96, 54, DeferredSettings2(**kw), device=device)
+                frames = 2
+            for _ in range(frames):
+                img = pipe.render_frame(cam)
+            imgs.append(img.cpu().numpy())
+        rmse = float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2)))
+        log(f"# small {label} 96x54{' (textured)' if textured else ''}: card vs CPU RMSE "
+            f"{rmse:.3g} (limit {SMALL_RMSE})")
+        if not (rmse <= SMALL_RMSE and np.isfinite(imgs[0]).all() and imgs[0].std() > 0.01):
+            raise AssertionError(f"the card's small {label} render disagrees with the CPU's")
 
 
 def main():
@@ -1461,6 +1816,7 @@ def main():
     timings, batches = phase_compare(scene, cam, pt, dev, card)
     launches, factor_frame = {}, None
     launches["pathtracer"], factor_frame = phase_frame(pt, cam, dev, card)
+    phase5 = dict(image=pt.image().clone(), frames=pt.accumulated_samples, ms=factor_frame["ms"])
     del pt
     phase_small_reference(dev)
 
@@ -1478,7 +1834,6 @@ def main():
     log(f"# phases 1-7 took {time.perf_counter() - t_start:.1f} s")
 
     timings.update(phase_two_phase(scene, batches))
-    del batches
     launches.update(phase_pipeline(db, cam, dev, card))
     phase_denoise_record(db, scene, cam, dev)
     timings["trace_closest_steps"], launches["debug_view"] = phase_debug_view(
@@ -1487,8 +1842,22 @@ def main():
     log(f"# phases 1-12 took {time.perf_counter() - t_start:.1f} s")
     probes = phase_probes(dev, card)
     log(f"# phases 1-13 took {time.perf_counter() - t_start:.1f} s")
-    launches.update(phase_textured(dev, card, args.seed, factor_frame, timings))
+    textured_launches, textured_db = phase_textured(dev, card, args.seed, factor_frame, timings)
+    launches.update(textured_launches)
     log(f"# phases 1-14 took {time.perf_counter() - t_start:.1f} s")
+    caps, capped = phase_capped(scene, batches, timings, card)
+    timings.update(capped)
+    del batches
+    launches.update(phase_capped_frames(db, scene, cam, dev, card, caps, phase5))
+    del phase5
+    torch.cuda.empty_cache()
+    log(f"# phases 1-16 took {time.perf_counter() - t_start:.1f} s")
+    launches.update(phase_deferred_passes(textured_db, cam, dev, card, timings))
+    del textured_db
+    torch.cuda.empty_cache()
+    log(f"# phases 1-17 took {time.perf_counter() - t_start:.1f} s")
+    phase_small_passes(dev, args.seed)
+    log(f"# phases 1-18 took {time.perf_counter() - t_start:.1f} s (the run's wall time)")
 
     kernels = []
     for name, where in KERNELS_WHERE.items():

@@ -80,6 +80,17 @@
 // Persistent warps measured no faster here (+-1%), and loading the next
 // record before the slab test resolves 7% slower; neither is kept. One ray
 // a thread.
+//
+// Two more entry points, idk_trace_closest_capped and idk_trace_any_capped
+// (trace_capped_kernel<ANY_HIT>), replace no Pallas kernel: they are the
+// JAX package's XLA traces with a step cap, trace_closest and trace_any
+// with `max_steps` (idkengine_tpu/ops/trace.py:122, 279), which its path
+// tracer passes as PathTracerSettings.max_trace_steps. A ray stops after
+// max_steps steps of the stackless binary walk, so the capped kernels walk
+// the threaded records as the steps kernel does (walk_ray), one node a
+// step; the 4-wide walk visits other nodes and could not stop where the
+// JAX walk stops. The any-hit form also stops after the leaf that found an
+// occluder, as the JAX any-hit step does.
 
 #include <stdint.h>
 
@@ -269,27 +280,21 @@ int launch_trace(const void* wide, const void* tri_vec, const void* o, const voi
   return (int)cudaGetLastError();
 }
 
-// One step per iteration, as ops/trace.py:_traverse: slab-test the pointed
-// node against t_best; at a hit leaf test its triangles in order with
-// strict <; go to the next record at a hit interior node, else to the miss
-// link. Dead rays run too (one step at the root), as the plain version
-// counts them.
-__global__ void __launch_bounds__(TRACE_BLOCK)
-trace_steps_kernel(const float4* __restrict__ nodes, const float4* __restrict__ tri_vec,
-                   const float* __restrict__ o, const float* __restrict__ d,
-                   const float* __restrict__ t_max, float* __restrict__ t_out,
-                   int* __restrict__ slot_out, float* __restrict__ u_out,
-                   float* __restrict__ v_out, int* __restrict__ steps_out, int n_rays,
-                   int leaf_bits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(o, d, i);
-  float t_best = t_max[i];
-  int best_slot = -1, steps = 0;
-  float best_u = 0.0f, best_v = 0.0f;
-  int ptr = 0;
+// The stackless walk of ops/trace.py:_traverse over the threaded records,
+// one node a step: slab-test the pointed node against t_best; at a hit
+// leaf test its triangles in order with strict <; go to the next record at
+// a hit interior node, else to the miss link. At most max_steps steps; the
+// any-hit walk also stops after the leaf that found an occluder (the JAX
+// package's _traversal_step with t_cut = t_max). Dead rays run too (one
+// step at the root), as the plain version counts them. Returns the steps.
+template <bool ANY_HIT>
+__device__ __forceinline__ int walk_ray(const float4* __restrict__ nodes,
+                                        const float4* __restrict__ tri_vec, const Ray& r,
+                                        float& t_best, int& best_slot, float& best_u,
+                                        float& best_v, int max_steps, int leaf_bits) {
+  int steps = 0, ptr = 0;
   float4 a = __ldg(nodes), b = __ldg(nodes + 1);  // min.xyz | miss, max.xyz | leaf word
-  for (;;) {
+  while (steps < max_steps) {
     ++steps;
     float tn;
     const bool hit = slab_box(a.x, a.y, a.z, b.x, b.y, b.z, r, t_best, tn);
@@ -305,8 +310,10 @@ trace_steps_kernel(const float4* __restrict__ nodes, const float4* __restrict__ 
           best_slot = first + k;
           best_u = u;
           best_v = v;
+          if (ANY_HIT) break;
         }
       }
+      if (ANY_HIT && best_slot >= 0) break;
     }
     const int next = (hit && word == 0) ? ptr + 1 : __float_as_int(a.w);
     if (next < 0) break;
@@ -314,11 +321,67 @@ trace_steps_kernel(const float4* __restrict__ nodes, const float4* __restrict__ 
     b = __ldg(nodes + 2 * next + 1);
     ptr = next;
   }
+  return steps;
+}
+
+__global__ void __launch_bounds__(TRACE_BLOCK)
+trace_steps_kernel(const float4* __restrict__ nodes, const float4* __restrict__ tri_vec,
+                   const float* __restrict__ o, const float* __restrict__ d,
+                   const float* __restrict__ t_max, float* __restrict__ t_out,
+                   int* __restrict__ slot_out, float* __restrict__ u_out,
+                   float* __restrict__ v_out, int* __restrict__ steps_out, int n_rays,
+                   int leaf_bits) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const Ray r = load_ray(o, d, i);
+  float t_best = t_max[i], best_u = 0.0f, best_v = 0.0f;
+  int best_slot = -1;
+  steps_out[i] = walk_ray<false>(nodes, tri_vec, r, t_best, best_slot, best_u, best_v,
+                                 0x7fffffff, leaf_bits);
   t_out[i] = t_best;
   slot_out[i] = best_slot;
   u_out[i] = best_u;
   v_out[i] = best_v;
-  steps_out[i] = steps;
+}
+
+// The JAX package's capped traces (trace_closest / trace_any with
+// max_steps): the same walk as trace_steps_kernel, stopped after max_steps
+// node visits, so that a ray stops where the JAX walk stops. A ray a thread.
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(TRACE_BLOCK)
+trace_capped_kernel(const float4* __restrict__ nodes, const float4* __restrict__ tri_vec,
+                    const float* __restrict__ o, const float* __restrict__ d,
+                    const float* __restrict__ t_max, float* __restrict__ t_out,
+                    int* __restrict__ slot_out, float* __restrict__ u_out,
+                    float* __restrict__ v_out, bool* __restrict__ occ_out, int n_rays,
+                    int max_steps, int leaf_bits) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const Ray r = load_ray(o, d, i);
+  float t_best = t_max[i], best_u = 0.0f, best_v = 0.0f;
+  int best_slot = -1;
+  walk_ray<ANY_HIT>(nodes, tri_vec, r, t_best, best_slot, best_u, best_v, max_steps,
+                    leaf_bits);
+  if (ANY_HIT) {
+    occ_out[i] = best_slot >= 0;
+  } else {
+    t_out[i] = t_best;
+    slot_out[i] = best_slot;
+    u_out[i] = best_u;
+    v_out[i] = best_v;
+  }
+}
+
+template <bool ANY_HIT>
+int launch_capped(const void* nodes, const void* tri_vec, const void* o, const void* d,
+                  const void* t_max, void* t_out, void* slot_out, void* u_out, void* v_out,
+                  void* occ_out, int n_rays, int max_steps, int leaf_bits, void* stream) {
+  if (max_steps < 0 || leaf_bits < 5 || leaf_bits > 30) return (int)cudaErrorInvalidValue;
+  trace_capped_kernel<ANY_HIT><<<grid_for(n_rays), TRACE_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const float4*)nodes, (const float4*)tri_vec, (const float*)o, (const float*)d,
+      (const float*)t_max, (float*)t_out, (int*)slot_out, (float*)u_out, (float*)v_out,
+      (bool*)occ_out, n_rays, max_steps, leaf_bits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -326,11 +389,12 @@ trace_steps_kernel(const float4* __restrict__ nodes, const float4* __restrict__ 
 extern "C" {
 
 // The interface of this library, for scripts that bind several versions
-// (trace_ab.py): 3 = the wide tables with a leaf_bits argument and the
-// threaded records of the steps kernel. Libraries without this function
-// are older: with idk_trace_stack_limit the wide tables with 5 count bits,
-// without it the binary records.
-int idk_trace_interface() { return 3; }
+// (trace_ab.py): 4 = the wide tables with a leaf_bits argument, the
+// threaded records of the steps kernel and the capped walks; 3 = the same
+// without the capped walks. Libraries without this function are older:
+// with idk_trace_stack_limit the wide tables with 5 count bits, without it
+// the binary records.
+int idk_trace_interface() { return 4; }
 
 // The most stack entries a ray can hold (3 per record level of the tree).
 int idk_trace_stack_limit() { return TRACE_RING + TRACE_SPILL; }
@@ -375,6 +439,26 @@ int idk_trace_closest_steps(const void* nodes, const void* tri_vec, const void* 
       (const float*)t_max, (float*)t_out, (int*)slot_out, (float*)u_out, (float*)v_out,
       (int*)steps_out, n_rays, leaf_bits);
   return (int)cudaGetLastError();
+}
+
+// Closest hit per ray after at most max_steps node visits of the threaded
+// walk (max_steps >= 0): outputs as idk_trace_closest_steps without the
+// steps. Returns cudaGetLastError().
+int idk_trace_closest_capped(const void* nodes, const void* tri_vec, const void* o,
+                             const void* d, const void* t_max, void* t_out, void* slot_out,
+                             void* u_out, void* v_out, int n_rays, int max_steps,
+                             int leaf_bits, void* stream) {
+  return launch_capped<false>(nodes, tri_vec, o, d, t_max, t_out, slot_out, u_out, v_out,
+                              nullptr, n_rays, max_steps, leaf_bits, stream);
+}
+
+// Occlusion per ray after at most max_steps node visits: occ_out (n_rays,)
+// bool. Returns cudaGetLastError().
+int idk_trace_any_capped(const void* nodes, const void* tri_vec, const void* o, const void* d,
+                         const void* t_max, void* occ_out, int n_rays, int max_steps,
+                         int leaf_bits, void* stream) {
+  return launch_capped<true>(nodes, tri_vec, o, d, t_max, nullptr, nullptr, nullptr, nullptr,
+                             occ_out, n_rays, max_steps, leaf_bits, stream);
 }
 
 }  // extern "C"

@@ -8,7 +8,12 @@ unrolled) entry points answer, over one whole-scene BVH: the kernel
 `csrc/trace.cu` (a 4-wide tree, `SceneArrays.bvh4_nodes`) replaces the three
 TPU kernels K1, K2 and K4 (see its header). `trace_closest_steps` adds
 per-ray traversal steps for the debug heatmap (K1 with `debug_iters`), over
-the threaded records `SceneArrays.bvh_thread`. The kernels are compiled
+the threaded records `SceneArrays.bvh_thread`. With `max_steps`,
+`trace_closest` and `trace_any` stop each ray after that many steps of the
+stackless binary walk, as the JAX package's XLA traces do
+(`idkengine_tpu/ops/trace.py:122, 279`): on the card through the capped
+kernels over the same threaded records, launched by `_closest_capped` and
+`_any_capped`, whose counts are their own. The kernels are compiled
 with nvcc on first use into `build/` and bound with ctypes. A CUDA tensor
 reaches the kernel or the call raises; the plain version runs only for
 tensors on the CPU.
@@ -55,6 +60,11 @@ def bind_library(path: str) -> ctypes.CDLL:
     lib.idk_trace_any.argtypes = [vp] * 7 + [ci, ci, ci, vp]
     lib.idk_trace_closest_steps.restype = ci
     lib.idk_trace_closest_steps.argtypes = [vp] * 10 + [ci, ci, vp]
+    if hasattr(lib, "idk_trace_closest_capped"):  # interface 4 on
+        lib.idk_trace_closest_capped.restype = ci
+        lib.idk_trace_closest_capped.argtypes = [vp] * 9 + [ci, ci, ci, vp]
+        lib.idk_trace_any_capped.restype = ci
+        lib.idk_trace_any_capped.argtypes = [vp] * 6 + [ci, ci, ci, vp]
     return lib
 
 
@@ -65,6 +75,9 @@ def _load():
         if lib.idk_trace_stack_limit() != WIDE_STACK_LIMIT:
             raise RuntimeError(f"{TRACE_SOURCE} holds {lib.idk_trace_stack_limit()} stack "
                                f"entries a ray, the wrapper expects {WIDE_STACK_LIMIT}")
+        if lib.idk_trace_interface() < 4:
+            raise RuntimeError(f"{TRACE_SOURCE} has no capped walks (interface "
+                               f"{lib.idk_trace_interface()})")
         _lib = lib
     return _lib
 
@@ -160,11 +173,22 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def trace_closest(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max) -> Hit:
+def _check_cap(max_steps):
+    if max_steps is not None and not 0 <= max_steps < 2 ** 31:
+        raise ValueError(f"max_steps must lie in 0..2**31-1, got {max_steps}")
+
+
+def trace_closest(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
+                  max_steps: int | None = None) -> Hit:
     """Closest hit per ray: Hit(t, slot, u, v); slot -1 and t = t_max on a
-    miss; t_max < 0 marks a dead ray. o/d: (R,3) f32; t_max: (R,) or scalar."""
+    miss; t_max < 0 marks a dead ray. o/d: (R,3) f32; t_max: (R,) or scalar.
+    max_steps: stop each ray after that many steps of the stackless binary
+    walk (the capped kernel), or None for no cap (the trace kernel)."""
+    _check_cap(max_steps)
     if _on_cpu(scene, o, d):
-        return _plain.trace_closest(scene, o, d, t_max)
+        return _plain.trace_closest(scene, o, d, t_max, max_steps=max_steps)
+    if max_steps is not None:
+        return _closest_capped(scene, o, d, t_max, max_steps)
     t_max, entries = _check_wide(scene, o, d, t_max)
     r = o.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=o.device)
@@ -183,11 +207,16 @@ def trace_closest(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max) -
     return Hit(t=t, slot=slot, u=u, v=v)
 
 
-def trace_any(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max) -> torch.Tensor:
+def trace_any(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
+              max_steps: int | None = None) -> torch.Tensor:
     """Occlusion per ray: bool (R,), True where a triangle lies at
-    0 < t < t_max. t_max < 0 marks a dead ray (never occluded)."""
+    0 < t < t_max. t_max < 0 marks a dead ray (never occluded). max_steps
+    as in trace_closest."""
+    _check_cap(max_steps)
     if _on_cpu(scene, o, d):
-        return _plain.trace_any(scene, o, d, t_max)
+        return _plain.trace_any(scene, o, d, t_max, max_steps=max_steps)
+    if max_steps is not None:
+        return _any_capped(scene, o, d, t_max, max_steps)
     t_max, entries = _check_wide(scene, o, d, t_max)
     r = o.shape[0]
     occ = torch.empty(r, dtype=torch.bool, device=o.device)
@@ -226,13 +255,51 @@ def trace_closest_steps(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor,
     return Hit(t=t, slot=slot, u=u, v=v), steps
 
 
+def _closest_capped(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
+                    max_steps: int) -> Hit:
+    """Launches the capped closest-hit walk of the threaded records, at most
+    max_steps nodes a ray (trace_closest(max_steps=...) on the card)."""
+    t_max = _check_thread(scene, o, d, t_max)
+    r = o.shape[0]
+    t = torch.empty(r, dtype=torch.float32, device=o.device)
+    slot = torch.empty(r, dtype=torch.int32, device=o.device)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    if r:
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = _load().idk_trace_closest_capped(
+            _ptr(scene.bvh_thread), _ptr(scene.tri_vec), _ptr(o), _ptr(d), _ptr(t_max), _ptr(t),
+            _ptr(slot), _ptr(u), _ptr(v), r, int(max_steps), scene.bvh4_leaf_bits,
+            ctypes.c_void_p(stream))
+        _raise_on(err, "trace_closest (capped)")
+        _closest_capped.launches += 1
+    return Hit(t=t, slot=slot, u=u, v=v)
+
+
+def _any_capped(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
+                max_steps: int) -> torch.Tensor:
+    """Launches the capped any-hit walk (trace_any(max_steps=...) on the
+    card)."""
+    t_max = _check_thread(scene, o, d, t_max)
+    r = o.shape[0]
+    occ = torch.empty(r, dtype=torch.bool, device=o.device)
+    if r:
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = _load().idk_trace_any_capped(
+            _ptr(scene.bvh_thread), _ptr(scene.tri_vec), _ptr(o), _ptr(d), _ptr(t_max),
+            _ptr(occ), r, int(max_steps), scene.bvh4_leaf_bits, ctypes.c_void_p(stream))
+        _raise_on(err, "trace_any (capped)")
+        _any_capped.launches += 1
+    return occ
+
+
 # launch counts: each wrapper adds one where it launches its kernel
-trace_closest.launches = 0
-trace_any.launches = 0
-trace_closest_steps.launches = 0
+WRAPPERS = (trace_closest, trace_any, trace_closest_steps, _closest_capped, _any_capped)
 
 
 def reset_launch_counts():
-    trace_closest.launches = 0
-    trace_any.launches = 0
-    trace_closest_steps.launches = 0
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+reset_launch_counts()

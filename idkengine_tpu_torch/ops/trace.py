@@ -5,7 +5,9 @@ as the JAX package does (ref: BVHIntersect.glsl TraceRay/TraceRayAny): every
 ray carries one DFS pointer; each step slab-tests the pointed node, tests up
 to `max_leaf` triangles of a leaf, and follows the hit or miss link. They
 are the port's CPU trace and the plain versions of the CUDA kernel in
-`ops/packet_trace.py`, which computes the same hits with a per-ray stack.
+`ops/packet_trace.py`, which computes the same hits with a per-ray stack;
+with `max_steps` they stop each ray after that many steps, as the JAX
+package's traces do, and are the plain versions of the capped kernels.
 
 Two changes of form, none of result: rays that finished are compacted out
 after every step, and a leaf's triangles are tested as one batch, keeping
@@ -136,9 +138,14 @@ def inverse_direction(d: torch.Tensor) -> torch.Tensor:
 
 
 def _traverse(scene: SceneArrays, o, d, t_max, any_hit: bool,
-              steps: torch.Tensor | None = None) -> Hit:
+              steps: torch.Tensor | None = None, max_steps: int | None = None,
+              visited: tuple[torch.Tensor, torch.Tensor] | None = None) -> Hit:
     """The stackless walk; where `steps` (R,) int32 is given, each ray's
-    count of steps with its pointer >= 0 is added to it."""
+    count of steps with its pointer >= 0 is added to it. With `max_steps`
+    every ray stops after that many steps, as the JAX package's while_loop
+    does at `step < max_steps`. Where `visited` (a bool (N,) over the
+    records and a bool (T,) over the triangles) is given, every record a
+    ray steps on and every triangle it tests is marked."""
     r = o.shape[0]
     dev = o.device
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(r).contiguous()
@@ -150,9 +157,13 @@ def _traverse(scene: SceneArrays, o, d, t_max, any_hit: bool,
     ks = torch.arange(scene.max_leaf, device=dev)
     ids = torch.arange(r, device=dev)  # rays still traversing
     ptr = torch.zeros(r, dtype=torch.int64, device=dev)  # their DFS pointers
-    while ids.numel():
+    step = 0
+    while ids.numel() and (max_steps is None or step < max_steps):
+        step += 1
         if steps is not None:
             steps[ids] += 1
+        if visited is not None:
+            visited[0][ptr] = True
         box_hit, _ = ray_aabb(o[ids], inv_d[ids], scene.node_min[ptr],
                               scene.node_max[ptr], t_best[ids])
         count = scene.node_count[ptr]
@@ -162,6 +173,8 @@ def _traverse(scene: SceneArrays, o, d, t_max, any_hit: bool,
             first = scene.node_first[ptr[leaf]].long()
             valid = ks[None, :] < count[leaf, None]
             tid = torch.where(valid, first[:, None] + ks[None, :], 0)
+            if visited is not None:
+                visited[1][tid[valid]] = True
             h, t, uu, vv = ray_triangle(o[rid, None, :], d[rid, None, :],
                                         scene.tri_p0[tid], scene.tri_e1[tid],
                                         scene.tri_e2[tid])
@@ -182,11 +195,13 @@ def _traverse(scene: SceneArrays, o, d, t_max, any_hit: bool,
     return Hit(t=t_best, slot=slot, u=u, v=v)
 
 
-def trace_closest(scene: SceneArrays, o, d, t_max=INF) -> Hit:
-    """Closest-hit trace for a ray batch. o/d: (R,3); t_max: (R,) or scalar.
+def trace_closest(scene: SceneArrays, o, d, t_max=INF, max_steps: int | None = None) -> Hit:
+    """Closest-hit trace for a ray batch. o/d: (R,3); t_max: (R,) or scalar;
+    max_steps: at most that many steps a ray (the JAX package's cap), or
+    None for none.
 
     ref: BVHIntersect.glsl TraceRay — re-expressed stackless."""
-    return _traverse(scene, o, d, t_max, False)
+    return _traverse(scene, o, d, t_max, False, max_steps=max_steps)
 
 
 def trace_closest_steps(scene: SceneArrays, o, d, t_max=INF) -> tuple[Hit, torch.Tensor]:
@@ -197,8 +212,9 @@ def trace_closest_steps(scene: SceneArrays, o, d, t_max=INF) -> tuple[Hit, torch
     return _traverse(scene, o, d, t_max, False, steps), steps
 
 
-def trace_any(scene: SceneArrays, o, d, t_max) -> torch.Tensor:
-    """Any-hit (occlusion) trace: bool (R,) 'occluded before t_max'.
+def trace_any(scene: SceneArrays, o, d, t_max, max_steps: int | None = None) -> torch.Tensor:
+    """Any-hit (occlusion) trace: bool (R,) 'occluded before t_max';
+    max_steps as in trace_closest.
 
     ref: BVHIntersect.glsl TraceRayAny."""
-    return _traverse(scene, o, d, t_max, True).slot >= 0
+    return _traverse(scene, o, d, t_max, True, max_steps=max_steps).slot >= 0

@@ -3,10 +3,10 @@ Counterpart: idkengine_tpu/render/camera.py.
 
 Host-side state mirrors the reference camera (ref: Source/Camera.cs); ray
 generation is the path tracer's camera ray setup
-(ref: PathTracing/FirstHit/compute.glsl:55-61 thin-lens DoF). The JAX
-camera's raster matrices and `frustum` serve the deferred pipeline, and its
-movement physics the interactive engine; neither is part of the port's
-slice.
+(ref: PathTracing/FirstHit/compute.glsl:55-61 thin-lens DoF); the view and
+projection matrices and the frustum serve the deferred pipeline's shadow-map
+culling. The JAX camera's movement physics (`process_inputs`,
+`advance_simulation`) serves the interactive engine and waits for it.
 """
 from __future__ import annotations
 
@@ -45,6 +45,26 @@ class Camera:
     def up(self) -> np.ndarray:
         return np.cross(self.right, self.forward).astype(np.float32)
 
+    def view_matrix(self) -> np.ndarray:
+        return mu.look_at(self.position, self.position + self.forward, np.array([0, 1, 0.0]))
+
+    def projection_matrix(self, aspect: float) -> np.ndarray:
+        return mu.perspective_reverse_z(np.radians(self.fov_y), aspect, self.near)
+
+    def frustum(self, width: int, height: int, far: float = 1e4):
+        """Camera frustum as a convex SAT volume (ref: Frustum.cs; used for
+        per-face shadow culling at CpuPointShadow.cs:116-185). Reverse-Z has
+        an infinite far plane, so culling uses a finite `far` cap."""
+        from ..collision import Frustum
+
+        aspect = width / height
+        tan_half = np.tan(np.radians(self.fov_y) * 0.5)
+        r = self.right * tan_half * aspect
+        u = self.up * tan_half
+        f = self.forward
+        corner_dirs = np.stack([f - r - u, f + r - u, f + r + u, f - r + u])
+        return Frustum.from_corner_rays(self.position, corner_dirs, self.near, far)
+
     def ray_params(self, width: int, height: int) -> dict:
         """Static per-frame camera basis for raygen (float32 numpy vectors)."""
         aspect = width / height
@@ -70,8 +90,12 @@ def generate_rays(params: dict, width: int, height: int, jitter: torch.Tensor,
     the port. `fused` rounds as the jit does: the divisions by the width and
     height become products by their rounded reciprocals, constants fold,
     and each product fuses into the addition after it (also the thin lens's
-    refocus). Each form is bit-equal to its counterpart without a lens;
-    with one, the sine and cosine may round apart."""
+    refocus). Each form is bit-equal to its counterpart without a lens.
+    With one, the lens angle's sine and cosine round as ATen's do, which
+    is not as XLA:CPU's (the C library's sinf and cosf): about 1% of them
+    differ in the last place, the lens offset by at most two units in the
+    last place of the lens radius (tests/test_torch_lens.py, which also
+    holds a path-traced lens image to the JAX package's)."""
     dev = jitter.device
     vec = {k: torch.as_tensor(params[k], dtype=torch.float32, device=dev)
            for k in ("origin", "forward", "right", "up")}

@@ -5,8 +5,8 @@ Re-expression of the reference's deferred shading pass (ref: Resource/
 Shaders/DeferredLighting/fragment.glsl:50-92 + include/Impl.glsl:5-63 —
 per-light GGX + attenuation) and the RT-shadows kernel (ref:
 ShadowsRayTraced/compute.glsl:49-125). Shadow rays go through the trace
-entry points given as `occlusion_fn`. The PCF shadow-map mode is not
-ported and raises.
+entry points given as `occlusion_fn`; the PCF mode reads point-light cube
+maps through `pcf_fn` (render/shadowmap.py).
 """
 from __future__ import annotations
 
@@ -75,11 +75,11 @@ def shade_deferred(gbuf, lights, n_lights: int, cam_origin, occlusion_fn,
     """Direct lighting for every G-buffer pixel.
 
     occlusion_fn(o, d, t_max) -> bool occluded, or None for unshadowed;
+    pcf_fn(light_index, points) -> visibility in [0,1] for shadow_mode
+    "pcf" (cube shadow maps, render/shadowmap.py);
     gi: optional (H,W,3) cone-traced indirect; ao: optional (H,W) SSAO.
     One loop over the lights serves every mode: the JAX package's scan over
     many unshadowed lights adds the same per-light terms in the same order."""
-    if settings.shadow_mode == "pcf" or pcf_fn is not None:
-        raise NotImplementedError("PCF shadow maps (shadow_mode='pcf') are not ported")
     h, w = gbuf.albedo.shape[:2]
     r = h * w
     dev = gbuf.albedo.device
@@ -95,6 +95,7 @@ def shade_deferred(gbuf, lights, n_lights: int, cam_origin, occlusion_fn,
 
     state = rng_mod.init_state(torch.arange(r, device=dev), frame)
     out = gbuf.emissive.reshape(r, 3)
+    pcf = settings.shadow_mode == "pcf" and pcf_fn is not None
     shadowed = settings.shadow_mode == "ray_traced" and occlusion_fn is not None
     for li in range(n_lights):
         l_pos = lights["pos"][li]
@@ -104,7 +105,9 @@ def shade_deferred(gbuf, lights, n_lights: int, cam_origin, occlusion_fn,
         dist = torch.linalg.vector_norm(to_l, dim=-1)
         ldir = to_l / torch.clamp(dist, min=1e-8)[..., None]
         vis = torch.ones(r, dtype=torch.float32, device=dev)
-        if shadowed:
+        if pcf:
+            vis = pcf_fn(li, pos)
+        elif shadowed:
             vis, state = _light_visibility(pos, n, l_pos, l_r, dist, occlusion_fn, state,
                                            settings)
         brdf_cos = shading.ggx_brdf(n, view, ldir, alb, met, rough)

@@ -29,8 +29,13 @@ environment map as the sky and next-event estimation toward it through an
 alias table (render/envsample.py), and a per-pixel bounce budget
 (`render_frame(rate_depth=...)`). Texture sampling, the sky lookup and the
 alias draws are PyTorch; every trace goes through the entry points above.
-Instances, tiling (`tile_size > 0`) and a traversal step cap
-(`max_trace_steps`) raise NotImplementedError.
+`tile_size` splits each closest-hit trace into launches of that many rays
+(where the batch is a multiple of it, after the sort permutation, as the
+JAX package's `_trace_maybe_tiled` does); the image is the untiled one.
+`max_trace_steps` caps every one-phase trace at that many steps of the
+stackless binary walk, as the JAX package's XLA traces take it (the capped
+kernels on the card); the two-phase route takes no cap, as in the JAX
+package. Instances raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -85,7 +90,7 @@ _NO_MAX_STEPS = 1 << 30
 @dataclass(frozen=True)
 class PathTracerSettings:
     """ref: PathTracer.cs settings block (:12-140). Same fields as the JAX
-    package's settings; the port's slice refuses the ones marked."""
+    package's settings."""
 
     ray_depth: int = 5
     spp_per_frame: int = 1
@@ -95,7 +100,7 @@ class PathTracerSettings:
     use_packet_tracer: bool = True  # traversal kernel on the card (always)
     use_two_phase: bool = False  # traces through ops/two_phase.py
     do_ray_sorting: bool = False
-    tile_size: int = 0  # only 0 (whole batch in one traversal) is ported
+    tile_size: int = 0  # 0 = whole batch in one traversal
     light_spheres: bool = True
     sky_zenith: tuple = (0.45, 0.65, 1.0)
     sky_horizon: tuple = (0.9, 0.9, 0.95)
@@ -105,17 +110,23 @@ class PathTracerSettings:
     # when on, NEE owns the diffuse direct env term and BSDF env hits count
     # only on delta-like paths (the same split as sphere lights)
     env_nee: bool = False
-    max_trace_steps: int = _NO_MAX_STEPS  # only the default is ported
+    max_trace_steps: int = _NO_MAX_STEPS  # the default: no cap
     # texture LOD bias added to the ray-cone mip level (negative = sharper;
     # ref: TAAResolve.cs:76-80)
     mip_bias: float = 0.0
 
 
-def _refuse_settings(s: PathTracerSettings):
-    for flag, what in ((s.tile_size > 0, "tile_size>0"),
-                       (s.max_trace_steps != _NO_MAX_STEPS, "max_trace_steps")):
-        if flag:
-            raise NotImplementedError(f"PathTracerSettings.{what} is not ported")
+def _trace_closest_tiled(scene, o, d, t_max, tile: int = 0, max_steps=None) -> Hit:
+    """trace_closest in launches of `tile` rays where the batch is larger
+    than a tile and a multiple of it (the JAX package's
+    `_trace_maybe_tiled`), else in one; `max_steps` caps each ray's walk."""
+    r = o.shape[0]
+    if not (tile and r > tile and r % tile == 0):
+        return trace_closest(scene, o, d, t_max, max_steps=max_steps)
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(r)
+    parts = [trace_closest(scene, o[i:i + tile], d[i:i + tile], t_max[i:i + tile].contiguous(),
+                           max_steps=max_steps) for i in range(0, r, tile)]
+    return Hit(*(torch.cat(k) for k in zip(*parts)))
 
 
 def _normalize(v):
@@ -346,7 +357,6 @@ class PathTracer:
 
     # -- settings with reset semantics (ref: PathTracer.cs setters) -------
     def _use_settings(self, settings: PathTracerSettings):
-        _refuse_settings(settings)
         self.settings = settings
         # sky colours as device vectors, made once (not per bounce)
         self._sky_zenith = torch.tensor(settings.sky_zenith, device=self.device)
@@ -491,6 +501,10 @@ class PathTracer:
         closest, occluded_fn = trace_closest, trace_any
         if s.use_two_phase:
             closest, occluded_fn = two_phase_closest, two_phase_any
+        elif s.tile_size or s.max_trace_steps != _NO_MAX_STEPS:
+            cap = None if s.max_trace_steps == _NO_MAX_STEPS else s.max_trace_steps
+            closest = partial(_trace_closest_tiled, tile=s.tile_size, max_steps=cap)
+            occluded_fn = partial(trace_any, max_steps=cap)
         env_tables = self._env_tables
 
         pixel_of = torch.arange(r, device=dev)  # ray i belongs to pixel pixel_of[i]

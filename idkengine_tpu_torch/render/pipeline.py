@@ -5,21 +5,19 @@ Counterpart: idkengine_tpu/render/pipeline.py (`DeferredSettings2`,
 Frame graph (the reference's raster graph re-thought as ray + image-space
 passes, ref: Source/Render/RasterPipeline.cs:264-625):
   Halton jitter → [VXGI voxelize] → G-buffer (primary rays) → SSAO →
-  [cone-traced GI] → deferred lighting with ray-traced shadows → bloom →
-  TAA resolve → tonemap.
+  [cone-traced GI] → deferred lighting with ray-traced or PCF cube-map
+  shadows → [OIT depth peel] → [SSR] → [volumetric light] → bloom → TAA
+  resolve, or TAAU to display resolution with `render_scale > 1` →
+  [rate classifier] → tonemap.
 
 Every trace goes through `ops.packet_trace.trace_closest/trace_any`: the CUDA
 traversal kernel on the card, the plain trace on the CPU. The device is the
 card unless the caller asks for the CPU, and the scene must lie there.
 
-SSR, volumetric light, transparency (OIT), the rate classifier, PCF shadow
-maps and the render-scale (TAAU) mode are not ported: their toggles raise
-NotImplementedError, and their sub-settings are left out.
-
 Path-tracer mode (ref: PathTracerPipeline.cs): accumulate samples →
-à-trous denoise once `denoise_at_samples` are in → bloom → AgX tonemap.
-The adaptive bounce budget and multi-device sharding raise
-NotImplementedError.
+à-trous denoise once `denoise_at_samples` are in → bloom → AgX tonemap;
+with `adaptive_rate` the rate classifier sets next frame's per-pixel
+bounce budget. Multi-device sharding raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -32,15 +30,22 @@ from torch.profiler import record_function
 
 from ..ops.packet_trace import trace_any, trace_closest
 from ..utils import mathutil as mu
+from ..utils.compression import decompress_normal
+from . import adaptive as adaptive_mod
 from . import bloom as bloom_mod
 from . import deferred as deferred_mod
 from . import denoise as denoise_mod
+from . import oit as oit_mod
+from . import shadowmap as shadowmap_mod
 from . import ssao as ssao_mod
+from . import ssr as ssr_mod
 from . import taa as taa_mod
 from . import tonemap as tonemap_mod
-from .camera import Camera
+from . import upscale as upscale_mod
+from . import volumetric as vol_mod
+from .camera import Camera, generate_rays
 from .gbuffer import render_gbuffer
-from .pathtracer import PathTracer, PathTracerSettings, uv_density
+from .pathtracer import PathTracer, PathTracerSettings, sample_atlas, uv_density
 from .vxgi import VoxelGrid, VxgiSettings
 
 
@@ -50,14 +55,21 @@ class DeferredSettings2:
 
     use_vxgi: bool = False
     use_ssao: bool = True
-    use_ssr: bool = False  # not ported
-    use_volumetric: bool = False  # not ported
+    use_ssr: bool = False
+    use_volumetric: bool = False
     use_taa: bool = True
     use_bloom: bool = True
-    use_oit: bool = False  # not ported
-    use_classifier: bool = False  # not ported
-    shadows: str = "ray_traced"  # none | ray_traced; pcf is not ported
-    render_scale: int = 1  # only 1 (native resolution + plain TAA) is ported
+    use_oit: bool = False  # depth-peeled transparency (ref: OIT #26)
+    oit_layers: int = 4
+    use_classifier: bool = False  # adaptive-rate map (ref: VRS #29)
+    shadows: str = "ray_traced"  # none | pcf | ray_traced (ref modes)
+    shadow_map_res: int = 256
+    # render-scale mode (the FSR2 slot, ref: RasterPipeline.cs:611-624):
+    # render the whole frame graph at (H/render_scale, W/render_scale) and
+    # TAAU-resolve to display resolution. 1 = native + plain TAA.
+    render_scale: int = 1
+    upscale: upscale_mod.UpscaleSettings = field(default_factory=upscale_mod.UpscaleSettings)
+    ssr: ssr_mod.SsrSettings = field(default_factory=ssr_mod.SsrSettings)
     vxgi: VxgiSettings = field(default_factory=VxgiSettings)
     deferred: deferred_mod.DeferredSettings = field(default_factory=deferred_mod.DeferredSettings)
     taa: taa_mod.TaaSettings = field(default_factory=taa_mod.TaaSettings)
@@ -65,15 +77,13 @@ class DeferredSettings2:
     tonemap: tonemap_mod.TonemapSettings = field(default_factory=tonemap_mod.TonemapSettings)
 
 
-def _refuse_settings(s: DeferredSettings2):
-    for flag, what in ((s.use_ssr, "use_ssr"), (s.use_volumetric, "use_volumetric"),
-                       (s.use_oit, "use_oit"), (s.use_classifier, "use_classifier"),
-                       (s.shadows == "pcf", "shadows='pcf'"),
-                       (s.render_scale > 1, "render_scale>1")):
-        if flag:
-            raise NotImplementedError(f"DeferredSettings2.{what} is not ported")
-    if s.shadows not in ("none", "ray_traced"):
+def _check_settings(s: DeferredSettings2, width: int, height: int):
+    if s.shadows not in ("none", "pcf", "ray_traced"):
         raise ValueError(f"unknown shadow mode {s.shadows!r}")
+    rs = max(1, int(s.render_scale))
+    if width % rs or height % rs:
+        raise ValueError(f"render_scale {rs} must divide the display resolution "
+                         f"{width}x{height}")
 
 
 def material_tensors(soa: dict, device) -> dict:
@@ -97,7 +107,7 @@ class DeferredPipeline:
     def __init__(self, scene_db, width: int, height: int,
                  settings: DeferredSettings2 | None = None, *, device="cuda"):
         self.settings = settings or DeferredSettings2()
-        _refuse_settings(self.settings)
+        _check_settings(self.settings, width, height)
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -120,6 +130,8 @@ class DeferredPipeline:
         self.history = None
         self._prev_cam_params = None
         self.voxel_grid = None
+        self._shadow_mgr = None
+        self.rate_map = None
         if self.settings.use_vxgi:
             lo = scene_db.blas.nodes["min"][0] - 0.1
             hi = scene_db.blas.nodes["max"][0] + 0.1
@@ -149,8 +161,12 @@ class DeferredPipeline:
     def render_frame(self, camera: Camera) -> torch.Tensor:
         """Returns the tonemapped (H,W,3) [0,1] image."""
         s = self.settings
-        _refuse_settings(s)
-        w, h = self.width, self.height
+        _check_settings(s, self.width, self.height)
+        rs = max(1, int(s.render_scale))
+        # render-scale mode: the whole frame graph runs at render resolution
+        # and the TAAU resolve reconstructs display resolution (the FSR2
+        # role, ref: RasterPipeline.cs:611-624)
+        w, h = self.width // rs, self.height // rs
         dev = self.device
         soa = self.db.lights.soa()
         lights = {k: torch.as_tensor(soa[k], device=dev) for k in ("pos", "radius", "radiance")}
@@ -161,7 +177,8 @@ class DeferredPipeline:
         occluded = partial(trace_any, scene)
 
         # TAA jitter (Halton, ref: RasterPipeline.cs:266-299)
-        jitter = mu.halton_2d(16)[self.frame % 16] if s.use_taa else np.array([0.5, 0.5])
+        jitter = (mu.halton_2d(16)[self.frame % 16] if (s.use_taa or rs > 1)
+                  else np.array([0.5, 0.5], np.float32))
         cam_params = camera.ray_params(w, h)
         prev_cam = self._prev_cam_params or cam_params
 
@@ -173,10 +190,10 @@ class DeferredPipeline:
                 self.voxel_grid.voxelize(scene, self.mats, lights, n_lights, frame=self.frame,
                                          occlusion_fn=occluded)
 
-        # G-buffer (primary visibility); TAA biases the texture LOD
+        # G-buffer (primary visibility); TAA and TAAU bias the texture LOD
         # (ref: TAAResolve.cs:76-80)
         with record_function("deferred/G-buffer"):
-            bias = taa_mod.mip_bias(w, self.width) if s.use_taa else 0.0
+            bias = taa_mod.mip_bias(w, self.width) if (rs > 1 or s.use_taa) else 0.0
             gbuf = render_gbuffer(closest, scene, self.mats, cam_params, prev_cam, w, h,
                                   jitter=torch.as_tensor(jitter, dtype=torch.float32),
                                   mip_bias=bias, slot_shading=self.slot_shading(),
@@ -204,19 +221,70 @@ class DeferredPipeline:
                                                 gbuf.normal.reshape(r, 3),
                                                 self.frame).reshape(h, w, 3)
 
-        # deferred lighting + ray-traced shadows
+        # PCF cube maps, each face culled against the camera frustum before
+        # its 6*res^2-ray build (ref: CpuPointShadow.cs:116-185); a map is
+        # rebuilt only when its light moved or a culled face came into view
+        pcf_fn = None
+        if s.shadows == "pcf" and n_lights > 0:
+            with record_function("deferred/pcf build"):
+                if self._shadow_mgr is None:
+                    self._shadow_mgr = shadowmap_mod.PointShadowManager(
+                        lambda o, d, tm: trace_closest(self.db.device_scene, o, d, tm).t,
+                        s.shadow_map_res, device=dev)
+                cam_frustum = camera.frustum(w, h)
+                maps = [self._shadow_mgr.update(li, self.db.lights.lights[li].position,
+                                                camera_frustum=cam_frustum)
+                        for li in range(n_lights)]
+            pcf_fn = lambda li, pts: shadowmap_mod.pcf_visibility(maps[li], pts)  # noqa: E731
+
+        # deferred lighting + shadows
         occ = occluded if s.shadows == "ray_traced" else None
         dsettings = (replace(s.deferred, shadow_mode=s.shadows)
                      if s.shadows != s.deferred.shadow_mode else s.deferred)
         with record_function("deferred/lighting + shadows"):
             color = deferred_mod.shade_deferred(gbuf, lights, n_lights, cam_params["origin"],
-                                                occ, dsettings, gi=gi, ao=ao, frame=self.frame)
+                                                occ, dsettings, gi=gi, ao=ao, frame=self.frame,
+                                                pcf_fn=pcf_fn)
+
+        # depth-peeled OIT over the opaque result (ref: RecordTransparent/
+        # ResolveTransparent; the layers arrive in depth order)
+        if s.use_oit:
+            with record_function("deferred/oit"):
+                color = self._composite_transparency(color, cam_params, jitter, lights,
+                                                     n_lights, closest, occluded)
+
+        # SSR merge (ref: SSR then MergeTextures); misses fall back to the
+        # sky along the reflected direction (ref: SSR/compute.glsl:79-81)
+        if s.use_ssr:
+            with record_function("deferred/ssr"):
+                refl, _, _ = ssr_mod.ssr(color, gbuf.position, gbuf.normal, gbuf.depth,
+                                         cam_params, settings=s.ssr)
+                f = (1.0 - gbuf.roughness[..., None]) * gbuf.mask[..., None]
+                color = color + refl * f * 0.5
+
+        # volumetric light, shadow-traced at every march sample (ref:
+        # VolumetricLight/compute.glsl:79)
+        if s.use_volumetric and n_lights > 0:
+            with record_function("deferred/volumetric"):
+                color = color + vol_mod.volumetric_light(
+                    gbuf.position, gbuf.depth, cam_params["origin"], lights["pos"],
+                    lights["radiance"], n_lights, occluded if s.shadows != "none" else None)
 
         if s.use_bloom:
             with record_function("deferred/bloom"):
                 color = color + bloom_mod.bloom(color, s.bloom)
 
-        if s.use_taa:
+        # TAA resolve at native resolution, or the TAAU resolve that
+        # reconstructs display resolution from the jittered low-res frames
+        if rs > 1:
+            with record_function("deferred/taau"):
+                vel_hr = upscale_mod.upsample_bilinear(gbuf.velocity, rs) * rs
+                up_set = s.upscale if s.upscale.scale == rs else replace(s.upscale, scale=rs)
+                self.history = upscale_mod.taau_resolve(
+                    color, self.history, vel_hr,
+                    (float(jitter[0]) - 0.5, float(jitter[1]) - 0.5), up_set)
+                color = self.history[..., :3]
+        elif s.use_taa:
             with record_function("deferred/TAA"):
                 if self.history is None:
                     self.history = color
@@ -224,10 +292,69 @@ class DeferredPipeline:
                                             1.0 / torch.clamp(gbuf.depth, min=1e-3), s.taa)
                 self.history = color
 
+        # adaptive-rate classifier map (ref: VRS tiles; consumers can feed it
+        # back as per-tile sample budgets)
+        if s.use_classifier:
+            with record_function("deferred/classify"):
+                self.rate_map = adaptive_mod.classify(color, gbuf.velocity)
+
         self._prev_cam_params = cam_params
         self.frame += 1
         with record_function("deferred/tonemap"):
             return tonemap_mod.tonemap(color, s.tonemap)
+
+    def _composite_transparency(self, opaque_color, cam_params, jitter, lights, n_lights,
+                                closest, occluded):
+        """Depth-peel transparent surfaces along the camera rays, shade every
+        layer with the full per-light loop and shadows (ref:
+        RecordTransparent/fragment.glsl:77-93: transparent fragments get the
+        opaque lighting), and composite front to back over the opaque
+        shading (render/oit.py)."""
+        s = self.settings
+        h, w = opaque_color.shape[:2]  # render resolution
+        o, d = generate_rays(cam_params, w, h, torch.as_tensor(jitter, dtype=torch.float32,
+                                                               device=self.device))
+        mats = self.mats
+        scene = self.db.device_scene
+        trans_of = mats["transmission"]
+        occ_fn = occluded if s.shadows == "ray_traced" and n_lights else None
+
+        def trace(o_, d_, t_min, t_far):
+            hit = closest((o_ + d_ * t_min[..., None]).contiguous(), d_, t_far)
+            p = o_ + d_ * (t_min + hit.t)[..., None]
+            return hit.t, hit.slot >= 0, p, hit.slot, hit.u, hit.v
+
+        def shade(t, valid, p, slot_raw, u, v):
+            slot = torch.clamp(slot_raw, min=0).long()
+            mid = scene.tri_mat[slot].long()
+            base = mats["base_color"][mid]
+            w_b = 1.0 - u - v
+            uv = (scene.tri_uv[slot, 0] * w_b[..., None] + scene.tri_uv[slot, 1] * u[..., None]
+                  + scene.tri_uv[slot, 2] * v[..., None])
+            tex = sample_atlas(mats["atlas"], mats["base_layer"][mid], uv)
+            alb = base[:, :3] * tex[..., :3]
+            a = torch.where(trans_of[mid] > 0.0, 1.0 - trans_of[mid],
+                            torch.where(base[:, 3] < 1.0, base[:, 3] * tex[..., 3], 1.0))
+            # opaque hits end the peel without compositing: the opaque pass
+            # shaded them
+            stop = a >= 0.999
+            n_c = decompress_normal(scene.tri_n[slot])  # (R, 3 corners, 3)
+            ns = n_c[:, 0] * w_b[..., None] + n_c[:, 1] * u[..., None] + n_c[:, 2] * v[..., None]
+            ns = ns / torch.clamp(torch.linalg.vector_norm(ns, dim=-1, keepdim=True), min=1e-12)
+            ns = torch.where(((ns * d).sum(-1) > 0.0)[..., None], -ns, ns)
+            mr = sample_atlas(mats["atlas"], mats["mr_layer"][mid], uv)
+            met = mats["metallic"][mid] * mr[..., 2]
+            rough = mats["roughness"][mid] * mr[..., 1]
+            rgb = deferred_mod.shade_points(p, ns, alb, met, rough, cam_params["origin"],
+                                            lights, n_lights, occ_fn, s.deferred,
+                                            frame=self.frame)
+            em = sample_atlas(mats["atlas"], mats["emissive_layer"][mid], uv)
+            return rgb + mats["emissive"][mid] * em[..., :3], a, stop
+
+        color, alpha = oit_mod.peel_layers(
+            trace, shade, o, d, torch.full((w * h,), 3.4e38, device=self.device),
+            layers=s.oit_layers)
+        return oit_mod.composite_over(color.reshape(h, w, 3), alpha.reshape(h, w), opaque_color)
 
 
 _PT_OUTPUTS = ("noisy", "denoised", "albedo", "normal")
@@ -237,7 +364,9 @@ _PT_OUTPUTS = ("noisy", "denoised", "albedo", "normal")
 class PtPipelineSettings:
     denoise_at_samples: int = 32  # ref: PathTracerPipeline auto-denoise threshold
     output: str = "denoised"  # noisy | denoised | albedo | normal (ref selector)
-    adaptive_rate: bool = False  # not ported (render/adaptive.py)
+    # adaptive bounce budget from the rate classifier (render/adaptive.py):
+    # smooth tiles end their paths earlier next frame
+    adaptive_rate: bool = False
     shard_devices: int = 0  # only 0 (one device) is ported
     use_bloom: bool = True
     bloom: bloom_mod.BloomSettings = field(default_factory=bloom_mod.BloomSettings)
@@ -246,10 +375,8 @@ class PtPipelineSettings:
 
 
 def _refuse_pt_settings(s: PtPipelineSettings):
-    for flag, what in ((s.adaptive_rate, "adaptive_rate"),
-                       (s.shard_devices != 0, "shard_devices!=0")):
-        if flag:
-            raise NotImplementedError(f"PtPipelineSettings.{what} is not ported")
+    if s.shard_devices != 0:
+        raise NotImplementedError("PtPipelineSettings.shard_devices!=0 is not ported")
     if s.output not in _PT_OUTPUTS:
         raise ValueError(f"unknown output {s.output!r}; one of {_PT_OUTPUTS}")
 
@@ -272,9 +399,11 @@ class PathTracerPipeline:
                              env_map=env_map, slot_shading=scene_db.slot_shading(),
                              device=device)
         self.width, self.height = width, height
+        self._rate_depth = None
 
     def reset_accumulation(self):
         self.pt.reset_accumulation()
+        self._rate_depth = None
 
     def render_frame(self, camera: Camera) -> torch.Tensor:
         """Adds a frame's samples; returns the (H,W,3) [0,1] image of the
@@ -284,8 +413,13 @@ class PathTracerPipeline:
         h, w = self.height, self.width
         # each pass is a named range for torch.profiler
         with record_function("pt_sample"):
-            img = self.pt.render_frame(camera)
+            img = self.pt.render_frame(camera, rate_depth=self._rate_depth)
         alb, nrm, dep = self.pt._last_aovs
+        if s.adaptive_rate and self.pt.accumulated_samples >= 2:
+            with record_function("classify"):
+                rate = adaptive_mod.classify(img, torch.zeros((h, w, 2), device=img.device))
+                self._rate_depth = adaptive_mod.bounce_budget(rate, self.pt.settings.ray_depth,
+                                                              w, h)
         if s.output == "albedo":
             return torch.clamp(alb.reshape(h, w, 3), 0.0, 1.0)
         if s.output == "normal":

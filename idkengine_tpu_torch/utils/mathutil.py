@@ -1,8 +1,8 @@
 """Host-side math helpers (numpy). Counterpart: idkengine_tpu/utils/mathutil.py.
 
 Carried over as numpy code: the subset the ported slices use (vector
-normalisation, TRS compose/decompose for model nodes, the Halton sequence of
-the TAA jitter).
+normalisation, the camera's view and reverse-Z projection matrices, TRS
+compose/decompose for model nodes, the Halton sequence of the TAA jitter).
 """
 from __future__ import annotations
 
@@ -38,6 +38,37 @@ def halton_2d(n: int) -> np.ndarray:
 
 def normalize(v: np.ndarray, eps: float = 1e-20) -> np.ndarray:
     return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), eps)
+
+
+# ---------------------------------------------------------------------------
+# Camera matrices — reverse 0..1 depth convention (ref: Camera.cs:187-200,
+# MyMath.cs:180).
+# ---------------------------------------------------------------------------
+
+def look_at(eye: np.ndarray, target: np.ndarray, up: np.ndarray) -> np.ndarray:
+    """4x4 world→view matrix (column-vector convention: view = M @ p_h)."""
+    f = normalize(np.asarray(target, np.float64) - eye)
+    s = normalize(np.cross(f, up))
+    u = np.cross(s, f)
+    m = np.eye(4)
+    m[0, :3] = s
+    m[1, :3] = u
+    m[2, :3] = -f
+    m[:3, 3] = -m[:3, :3] @ eye
+    return m.astype(np.float32)
+
+
+def perspective_reverse_z(fovy: float, aspect: float, near: float) -> np.ndarray:
+    """Infinite-far reverse-Z projection with [0,1] depth (1 at near, 0 at
+    infinity; ref: Camera.cs:197-200)."""
+    f = 1.0 / np.tan(fovy * 0.5)
+    m = np.zeros((4, 4), dtype=np.float32)
+    m[0, 0] = f / aspect
+    m[1, 1] = f
+    m[2, 2] = 0.0
+    m[2, 3] = near
+    m[3, 2] = -1.0
+    return m
 
 
 # ---------------------------------------------------------------------------

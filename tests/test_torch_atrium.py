@@ -1,7 +1,7 @@
 """The slice's own configuration, cut to CPU size: a small atrium at depth 2
 with the bench's build settings, lights and camera, rays sorted between
 bounces. The port's image against the JAX package's (RMSE <= 1e-3, equal
-ray counts); sorting on against sorting off; features still refused."""
+ray counts); sorting on against sorting off; instances, still refused."""
 import numpy as np
 import pytest
 
@@ -75,14 +75,9 @@ def test_sorting_leaves_the_image_unchanged(port_db):
     assert float(on.last_rays_traced) == float(off.last_rays_traced)
 
 
-@pytest.mark.parametrize("what", ["tile_size", "max_trace_steps", "instances"])
+@pytest.mark.parametrize("what", ["instances"])
 def test_features_outside_the_slice_raise(port_db, what):
     db, scene = port_db
     with pytest.raises(NotImplementedError):
-        if what == "tile_size":
-            _port_pt(port_db, tile_size=4096)
-        elif what == "max_trace_steps":
-            _port_pt(port_db, max_trace_steps=100)
-        else:
-            PathTracer(scene, db.materials.soa(), db.lights.soa(), W, H, device="cpu",
-                       instances=object())
+        PathTracer(scene, db.materials.soa(), db.lights.soa(), W, H, device="cpu",
+                   instances=object())

@@ -805,3 +805,122 @@ def test_probes_refuse_bad_inputs(dev):
     cycles = torch.zeros(1, dtype=torch.int64, device=dev)
     with pytest.raises(RuntimeError):
         br._LIB("idk_bench_reduce", [x, out, torch.empty_like(x), cycles], [7, 10])
+
+
+@pytest.mark.parametrize("cap", [0, 1, 7, 64, 1 << 30])
+@pytest.mark.parametrize("kind", ["incoherent", "dead_and_zero", "inside_leaves", "from_1e8"])
+def test_capped_kernels_match_plain(dev, scenes, kind, cap):
+    """The capped walks (trace_capped_kernel) against the plain stackless
+    walk with the same cap: t, slot, u, v and occlusion equal on every ray
+    (both visit the same nodes in the same order, with the same
+    arithmetic); each call counts one capped launch and no trace_kernel
+    launch."""
+    _, sc, _ = scenes
+    o, d, t_max = _rays_of(kind, sc, 1 << 16, 41, dev)
+    kern.reset_launch_counts()
+    got = kern.trace_closest(sc, o, d, t_max, max_steps=cap)
+    occ = kern.trace_any(sc, o, d, t_max, max_steps=cap)
+    assert (kern._closest_capped.launches, kern._any_capped.launches) == (1, 1)
+    assert kern.trace_closest.launches == kern.trace_any.launches == 0
+    want = plain.trace_closest(sc, o, d, t_max, max_steps=cap)
+    for k in ("t", "slot", "u", "v"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert torch.equal(occ, plain.trace_any(sc, o, d, t_max, max_steps=cap))
+
+
+@pytest.mark.parametrize("n", [1, 5, 33, 1 << 20])
+def test_capped_kernels_batch_sizes(dev, scenes, n):
+    _, sc, _ = scenes
+    o, d, t_max = _rays_of("dead_and_zero", sc, n, 42, dev)
+    got = kern.trace_closest(sc, o, d, t_max, max_steps=48)
+    want = plain.trace_closest(sc, o, d, t_max, max_steps=48)
+    assert torch.equal(got.slot, want.slot) and torch.equal(got.t, want.t)
+    assert torch.equal(kern.trace_any(sc, o, d, t_max, max_steps=48),
+                       plain.trace_any(sc, o, d, t_max, max_steps=48))
+
+
+def test_capped_kernels_refuse_bad_inputs(dev, scenes):
+    _, sc, _ = scenes
+    o, d, t_max = _rays_of("incoherent", sc, 64, 43, dev)
+    with pytest.raises(ValueError):
+        kern.trace_closest(sc, o, d, t_max, max_steps=-1)
+    with pytest.raises(ValueError):
+        kern.trace_any(sc, o.cpu(), d, t_max, max_steps=8)
+
+
+def _small_deferred(device, settings, frames=2, scene="atrium"):
+    """Two frames of a 64x48 deferred render on `device`: the small atrium,
+    or the Cornell box with glossy walls, a transmissive and a blended box."""
+    from idkengine_tpu_torch.render import DeferredPipeline
+    from idkengine_tpu_torch.scene.model import Material
+    from idkengine_tpu_torch.scene.procedural import cornell_box
+
+    if scene == "atrium":
+        db = SceneDatabase(BuildSettings(**BUILD))
+        db.add_model(atrium(8000))
+        lights = [([0.0, 10.5, 0.0], [40.0, 38.0, 35.0], 0.8),
+                  ([6.0, 4.0, -20.0], [20.0, 10.0, 5.0], 0.5)]
+        cam = dict(position=np.array([0.0, 3.0, 24.0], np.float32), yaw=-90.0, fov_y=65.0)
+    else:
+        m = cornell_box(emissive_quad=False)
+        m.materials[0].roughness = 0.3
+        m.materials += [Material(name="glass", base_color=np.float32([0.9, 0.95, 1.0, 1.0]),
+                                 transmission=0.6, roughness=0.1),
+                        Material(name="veil", base_color=np.float32([0.2, 0.3, 0.8, 0.5]),
+                                 alpha_cutoff=0.0)]
+        m.primitives[-1].material, m.primitives[-2].material = 4, 5
+        db = SceneDatabase()
+        db.add_model(m)
+        lights = [([278, 480, 279.5], [6, 6, 6], 45.0), ([120, 300, 150], [3, 2, 1], 20.0)]
+        cam = dict(position=np.array([278, 273, -800], np.float32), yaw=90.0, fov_y=38.0)
+    db.build(device)
+    for pos, rad, r in lights:
+        db.lights.add(pos, rad, radius=r)
+    pipe = DeferredPipeline(db, 64, 48, settings, device=device)
+    for _ in range(frames):
+        img = pipe.render_frame(Camera(**cam))
+    return img.cpu().numpy(), pipe
+
+
+@pytest.mark.parametrize("toggle", ["ssr", "volumetric", "oit", "classifier", "pcf",
+                                    "render_scale"])
+def test_deferred_toggle_on_card_matches_cpu(dev, toggle):
+    """Each optional pass's small render on the card against the CPU's
+    (RMSE <= 1e-3): the card's frame goes through the trace kernels."""
+    from idkengine_tpu_torch.render import DeferredSettings2
+
+    kw = {"ssr": dict(use_ssr=True), "volumetric": dict(use_volumetric=True),
+          "oit": dict(use_oit=True), "classifier": dict(use_classifier=True),
+          "pcf": dict(shadows="pcf", shadow_map_res=64),
+          "render_scale": dict(render_scale=2)}[toggle]
+    scene = "box" if toggle in ("ssr", "oit") else "atrium"
+    kern.reset_launch_counts()
+    card, pipe = _small_deferred(dev, DeferredSettings2(**kw), scene=scene)
+    assert kern.trace_closest.launches > 0
+    cpu, cpu_pipe = _small_deferred("cpu", DeferredSettings2(**kw), scene=scene)
+    assert np.isfinite(card).all() and card.std() > 0.01
+    assert float(np.sqrt(np.mean((card - cpu) ** 2))) <= 1e-3
+    if toggle == "classifier":
+        np.testing.assert_allclose(pipe.rate_map.cpu().numpy(), cpu_pipe.rate_map.numpy(),
+                                   rtol=1e-4)
+
+
+def test_capped_and_tiled_pathtracer_on_card_matches_cpu(dev):
+    """A capped, tiled frame of the small atrium on the card against the
+    CPU's (RMSE <= 1e-3); the card's frame launches the capped kernels."""
+    cam = Camera(position=np.array([0.0, 3.0, 24.0], np.float32), yaw=-90.0, fov_y=65.0)
+    imgs = []
+    for device in (dev, "cpu"):
+        db = SceneDatabase(BuildSettings(**BUILD))
+        db.add_model(atrium(8000))
+        scene = db.build(device)
+        db.lights.add([0.0, 10.5, 0.0], [40.0, 38.0, 35.0], radius=0.8)
+        pt = PathTracer(scene, db.materials.soa(), db.lights.soa(), 96, 54, PathTracerSettings(
+            ray_depth=2, russian_roulette=False, do_ray_sorting=True, max_trace_steps=64,
+            tile_size=96 * 54 // 4), device=device)
+        kern.reset_launch_counts()
+        imgs.append(pt.render_frame(cam).cpu().numpy())
+        if device == dev:
+            assert kern._closest_capped.launches == 8  # four tiles a bounce
+            assert kern._any_capped.launches > 0 and kern.trace_closest.launches == 0
+    assert float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2))) <= 1e-3

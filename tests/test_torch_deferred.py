@@ -203,23 +203,6 @@ def test_pipeline_matches_jax_over_two_frames(scenes):
     assert pipe.frame == 2 and pipe.voxel_grid.radiance.shape == (4, 16, 16, 16)
 
 
-@pytest.mark.parametrize("toggle", [dict(use_ssr=True), dict(use_volumetric=True),
-                                    dict(use_oit=True), dict(use_classifier=True),
-                                    dict(shadows="pcf"), dict(render_scale=2)])
-def test_unported_toggles_raise(scenes, toggle):
-    db, _ = scenes
-    with pytest.raises(NotImplementedError):
-        DeferredPipeline(db, W, H, DeferredSettings2(**toggle), device="cpu")
-
-
-def test_unported_pass_options_raise(gbuffers):
-    gbuf, _ = gbuffers
-    lights = {"pos": torch.zeros(1, 3), "radius": torch.ones(1), "radiance": torch.ones(1, 3)}
-    with pytest.raises(NotImplementedError):
-        deferred.shade_deferred(gbuf, lights, 1, np.zeros(3, np.float32), None,
-                                deferred.DeferredSettings(shadow_mode="pcf"))
-
-
 def test_pipeline_refuses_scene_on_another_device(scenes):
     db, _ = scenes
     with pytest.raises(ValueError):

@@ -12,6 +12,7 @@ import idkengine_tpu_torch
 from idkengine_tpu_torch.bvh import builder
 from idkengine_tpu_torch.ops import packet_trace, two_phase, voxel_scatter
 from idkengine_tpu_torch.render import DeferredPipeline, PathTracer, PathTracerPipeline
+from idkengine_tpu_torch.render.shadowmap import PointShadowManager, build_point_shadow
 from idkengine_tpu_torch.render.vxgi import VoxelGrid
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase
 from idkengine_tpu_torch.tools import (_probe, bench_dual, bench_mxu_leaf, bench_prims,
@@ -33,7 +34,10 @@ def test_import_leaves_jax_out():
             "import idkengine_tpu_torch.render.denoise\n"
             "import idkengine_tpu_torch.tools.bench_slab, idkengine_tpu_torch.tools.bench_mxu_leaf\n"
             "import idkengine_tpu_torch.tools.bench_reduce, idkengine_tpu_torch.tools.bench_dual\n"
-            "import idkengine_tpu_torch.tools.bench_prims\n"
+            "import idkengine_tpu_torch.tools.bench_prims, idkengine_tpu_torch.collision\n"
+            "import idkengine_tpu_torch.render.shadowmap, idkengine_tpu_torch.render.volumetric\n"
+            "import idkengine_tpu_torch.render.oit, idkengine_tpu_torch.render.ssr\n"
+            "import idkengine_tpu_torch.render.upscale, idkengine_tpu_torch.render.adaptive\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'idkengine_tpu')]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": REPO}
@@ -72,7 +76,8 @@ def test_compiled_sources_lie_inside_the_port():
 def test_entry_points_default_to_the_card():
     for fn, name in ((SceneDatabase.build, "device"), (PathTracer.__init__, "device"),
                      (DeferredPipeline.__init__, "device"), (VoxelGrid.__init__, "device"),
-                     (PathTracerPipeline.__init__, "device")):
+                     (PathTracerPipeline.__init__, "device"), (build_point_shadow, "device"),
+                     (PointShadowManager.__init__, "device")):
         assert inspect.signature(fn).parameters[name].default == "cuda", fn
     for probe in PROBES:
         assert inspect.signature(probe.main).parameters["device"].default == "cuda", probe

@@ -173,14 +173,11 @@ def test_two_phase_pipeline_matches(pipelines, output):
         assert _rmse(g, w) <= RMSE and _rmse(g, r) <= RMSE
 
 
-@pytest.mark.parametrize("what", ["adaptive_rate", "shard_devices", "output"])
+@pytest.mark.parametrize("what", ["shard_devices", "output"])
 def test_unported_settings_raise(pipelines, what):
     _, one, _ = pipelines
     with pytest.raises(NotImplementedError if what != "output" else ValueError):
-        if what == "adaptive_rate":
-            PathTracerPipeline(one.db, W, H, settings=PtPipelineSettings(adaptive_rate=True),
-                               device="cpu")
-        elif what == "shard_devices":
+        if what == "shard_devices":
             PathTracerPipeline(one.db, W, H, settings=PtPipelineSettings(shard_devices=-1),
                                device="cpu")
         else:

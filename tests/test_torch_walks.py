@@ -136,9 +136,11 @@ def test_threaded_records(scene):
     np.testing.assert_array_equal(np.where(leaf, rec[:, 3], np.arange(1, n + 1)), a["hit_link"])
 
 
-def record_walk(sc, o, d, t_max):
+def record_walk(sc, o, d, t_max, max_steps=None, any_hit=False):
     """trace_steps_kernel's walk of the threaded records, in plain PyTorch:
-    (Hit, steps)."""
+    (Hit, steps). With max_steps and any_hit, trace_capped_kernel's: at most
+    max_steps records a ray, and the any-hit walk ends after the leaf that
+    found an occluder."""
     rec = sc.bvh_thread
     box = rec[:, [0, 1, 2, 4, 5, 6]].contiguous().view(torch.float32)
     miss, word = rec[:, 3].long(), rec[:, 7].long()
@@ -151,7 +153,7 @@ def record_walk(sc, o, d, t_max):
     u, v = torch.zeros(r), torch.zeros(r)
     steps = torch.zeros(r, dtype=torch.int32)
     ids, ptr = torch.arange(r), torch.zeros(r, dtype=torch.long)
-    while ids.numel():
+    while ids.numel() and (max_steps is None or int(steps[ids].max()) < max_steps):
         steps[ids] += 1
         hit, _ = ray_aabb(o[ids], inv_d[ids], box[ptr, :3], box[ptr, 3:], t_best[ids])
         w = word[ptr]
@@ -169,6 +171,8 @@ def record_walk(sc, o, d, t_max):
                 t_best[rb], slot[rb] = t[better], s[better].to(torch.int32)
                 u[rb], v[rb] = uu[better], vv[better]
         nxt = torch.where(hit & (w == 0), ptr + 1, miss[ptr])
+        if any_hit:
+            nxt = torch.where(slot[ids] >= 0, -1, nxt)
         keep = nxt >= 0
         ids, ptr = ids[keep], nxt[keep]
     return t_trace.Hit(t=t_best, slot=slot, u=u, v=v), steps
