@@ -76,7 +76,11 @@
 //   in place of eight scalar loads from six arrays, and one dependent round
 //   trip a step in place of two: the next node is the next record (a hit
 //   interior node) or the miss link, which arrives with the box (-21%);
-// - leaf triangles from tri_vec, three float4 loads a slot (-2%).
+// - leaf triangles from tri_vec, three float4 loads a slot (-2%);
+// - a leaf's triangles loaded four at a time, then tested in order
+//   (leaf_batched; -10% on the debug view's rays, -13% on the primaries):
+//   loaded one at a time, each triangle waits a round trip, which the
+//   walk's tail, a few warps of long rays on an idle card, cannot hide.
 // Persistent warps measured no faster here (+-1%), and loading the next
 // record before the slab test resolves 7% slower; neither is kept. One ray
 // a thread.
@@ -91,6 +95,21 @@
 // step; the 4-wide walk visits other nodes and could not stop where the
 // JAX walk stops. The any-hit form also stops after the leaf that found an
 // occluder, as the JAX any-hit step does.
+//
+// What bounds the capped kernels: instruction issue. Rays of a warp that
+// start together walk the same records in lockstep (the stackless walk's
+// order does not depend on the ray until the boxes differ), so their loads
+// are shared, and a warp issues 44-47 instructions a step and 67-68 a
+// triangle (trace_ab.py's STEP_INSTRUCTIONS, TRIANGLE_INSTRUCTIONS): on the
+// atrium's batches the least time to issue those trips at the card's top
+// clock is most of the measured time (PERF.md). Forms that add
+// instructions or break the lockstep measured slower, and are not kept
+// (PERF.md): persistent warps with per-lane ray refill (Aila and Laine's
+// "replacing terminated rays"; at every idle lane, at 4 or 8, with the new
+// rays staged in shared memory by cp.async), the next record's loads
+// issued before the leaf, two or four triangles' loads at once (in
+// registers or through shared memory by cp.async), an early-out of the
+// triangle test on u, and other register limits. One ray a thread.
 
 #include <stdint.h>
 
@@ -280,6 +299,45 @@ int launch_trace(const void* wide, const void* tri_vec, const void* o, const voi
   return (int)cudaGetLastError();
 }
 
+// Triangles a leaf test of the steps kernel loads at once (72 registers, 7
+// resident blocks an SM; 2, 3 and 6 measured slower, PERF.md).
+constexpr int kStepsLeaf = 4;
+
+// Tests a leaf's triangles first .. first + count - 1 in order with strict
+// <, LEAF at a time: their loads (three float4 a slot, the last one's first
+// float) issued together, then their tests in order.
+template <int LEAF>
+__device__ __forceinline__ void leaf_batched(const float4* __restrict__ tri_vec, const Ray& r,
+                                             int first, int count, float& t_best,
+                                             int& best_slot, float& best_u, float& best_v) {
+  for (int k = 0; k < count; k += LEAF) {
+    float4 ta[LEAF], tb[LEAF];
+    float tc[LEAF];
+#pragma unroll
+    for (int j = 0; j < LEAF; ++j) {
+      if (k + j < count) {
+        const float4* tv = tri_vec + 3 * (first + k + j);
+        ta[j] = __ldg(tv);
+        tb[j] = __ldg(tv + 1);
+        tc[j] = __ldg(reinterpret_cast<const float*>(tv + 2));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < LEAF; ++j) {
+      float t, u, v;
+      if (k + j < count &&
+          triangle_values(ta[j].x, ta[j].y, ta[j].z, ta[j].w, tb[j].x, tb[j].y, tb[j].z,
+                          tb[j].w, tc[j], r, t, u, v) &&
+          t < t_best) {
+        t_best = t;
+        best_slot = first + k + j;
+        best_u = u;
+        best_v = v;
+      }
+    }
+  }
+}
+
 // The stackless walk of ops/trace.py:_traverse over the threaded records,
 // one node a step: slab-test the pointed node against t_best; at a hit
 // leaf test its triangles in order with strict <; go to the next record at
@@ -287,11 +345,14 @@ int launch_trace(const void* wide, const void* tri_vec, const void* o, const voi
 // any-hit walk also stops after the leaf that found an occluder (the JAX
 // package's _traversal_step with t_cut = t_max). Dead rays run too (one
 // step at the root), as the plain version counts them. Returns the steps.
-template <bool ANY_HIT>
+// LEAF > 1 (closest hits only) loads a leaf's triangles LEAF at a time
+// (leaf_batched); LEAF = 1 loads each after the previous one's test.
+template <bool ANY_HIT, int LEAF>
 __device__ __forceinline__ int walk_ray(const float4* __restrict__ nodes,
                                         const float4* __restrict__ tri_vec, const Ray& r,
                                         float& t_best, int& best_slot, float& best_u,
                                         float& best_v, int max_steps, int leaf_bits) {
+  static_assert(LEAF == 1 || !ANY_HIT, "a batched leaf tests past the first occluder");
   int steps = 0, ptr = 0;
   float4 a = __ldg(nodes), b = __ldg(nodes + 1);  // min.xyz | miss, max.xyz | leaf word
   while (steps < max_steps) {
@@ -303,14 +364,18 @@ __device__ __forceinline__ int walk_ray(const float4* __restrict__ nodes,
       const int leaf = ~word;
       const int first = leaf >> leaf_bits;
       const int count = (leaf & ((1 << leaf_bits) - 1)) + 1;
-      for (int k = 0; k < count; ++k) {
-        float t, u, v;
-        if (triangle_vec(tri_vec, first + k, r, t, u, v) && t < t_best) {
-          t_best = t;
-          best_slot = first + k;
-          best_u = u;
-          best_v = v;
-          if (ANY_HIT) break;
+      if constexpr (LEAF > 1) {
+        leaf_batched<LEAF>(tri_vec, r, first, count, t_best, best_slot, best_u, best_v);
+      } else {
+        for (int k = 0; k < count; ++k) {
+          float t, u, v;
+          if (triangle_vec(tri_vec, first + k, r, t, u, v) && t < t_best) {
+            t_best = t;
+            best_slot = first + k;
+            best_u = u;
+            best_v = v;
+            if (ANY_HIT) break;
+          }
         }
       }
       if (ANY_HIT && best_slot >= 0) break;
@@ -336,8 +401,8 @@ trace_steps_kernel(const float4* __restrict__ nodes, const float4* __restrict__ 
   const Ray r = load_ray(o, d, i);
   float t_best = t_max[i], best_u = 0.0f, best_v = 0.0f;
   int best_slot = -1;
-  steps_out[i] = walk_ray<false>(nodes, tri_vec, r, t_best, best_slot, best_u, best_v,
-                                 0x7fffffff, leaf_bits);
+  steps_out[i] = walk_ray<false, kStepsLeaf>(nodes, tri_vec, r, t_best, best_slot, best_u,
+                                             best_v, 0x7fffffff, leaf_bits);
   t_out[i] = t_best;
   slot_out[i] = best_slot;
   u_out[i] = best_u;
@@ -360,8 +425,8 @@ trace_capped_kernel(const float4* __restrict__ nodes, const float4* __restrict__
   const Ray r = load_ray(o, d, i);
   float t_best = t_max[i], best_u = 0.0f, best_v = 0.0f;
   int best_slot = -1;
-  walk_ray<ANY_HIT>(nodes, tri_vec, r, t_best, best_slot, best_u, best_v, max_steps,
-                    leaf_bits);
+  walk_ray<ANY_HIT, 1>(nodes, tri_vec, r, t_best, best_slot, best_u, best_v, max_steps,
+                       leaf_bits);
   if (ANY_HIT) {
     occ_out[i] = best_slot >= 0;
   } else {

@@ -139,13 +139,18 @@ def inverse_direction(d: torch.Tensor) -> torch.Tensor:
 
 def _traverse(scene: SceneArrays, o, d, t_max, any_hit: bool,
               steps: torch.Tensor | None = None, max_steps: int | None = None,
-              visited: tuple[torch.Tensor, torch.Tensor] | None = None) -> Hit:
+              visited: tuple[torch.Tensor, torch.Tensor] | None = None,
+              leaf_trips: torch.Tensor | None = None) -> Hit:
     """The stackless walk; where `steps` (R,) int32 is given, each ray's
     count of steps with its pointer >= 0 is added to it. With `max_steps`
     every ray stops after that many steps, as the JAX package's while_loop
     does at `step < max_steps`. Where `visited` (a bool (N,) over the
     records and a bool (T,) over the triangles) is given, every record a
-    ray steps on and every triangle it tests is marked."""
+    ray steps on and every triangle it tests is marked. Where `leaf_trips`
+    (an int64 (1,)) is given, the leaf trips of warps of 32 rays in launch
+    order that walk in lockstep, a ray a lane, are added to it: at each
+    step, for each warp, the most triangles any of its rays tests there (an
+    any-hit ray stops at its first occluder)."""
     r = o.shape[0]
     dev = o.device
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(r).contiguous()
@@ -168,6 +173,8 @@ def _traverse(scene: SceneArrays, o, d, t_max, any_hit: bool,
                               scene.node_max[ptr], t_best[ids])
         count = scene.node_count[ptr]
         leaf = (box_hit & (count > 0)).nonzero().squeeze(1)
+        if leaf_trips is not None:
+            tested = torch.zeros(ids.numel(), dtype=torch.int64, device=dev)
         if leaf.numel():
             rid = ids[leaf]
             first = scene.node_first[ptr[leaf]].long()
@@ -178,6 +185,11 @@ def _traverse(scene: SceneArrays, o, d, t_max, any_hit: bool,
             h, t, uu, vv = ray_triangle(o[rid, None, :], d[rid, None, :],
                                         scene.tri_p0[tid], scene.tri_e1[tid],
                                         scene.tri_e2[tid])
+            if leaf_trips is not None:
+                occluder = valid & h & (t < t_best[rid, None])
+                first_occ = torch.where(occluder, ks[None, :], scene.max_leaf).amin(1)
+                tested[leaf] = (torch.minimum(first_occ + 1, count[leaf].long()) if any_hit
+                                else count[leaf].long())
             t_min, k_min = torch.where(valid & h, t, float("inf")).min(dim=1)
             closer = t_min < t_best[rid]
             rc, kc = rid[closer], k_min[closer, None]
@@ -185,6 +197,11 @@ def _traverse(scene: SceneArrays, o, d, t_max, any_hit: bool,
             slot[rc] = (first[closer] + k_min[closer]).to(torch.int32)
             u[rc] = uu[closer].gather(1, kc).squeeze(1)
             v[rc] = vv[closer].gather(1, kc).squeeze(1)
+        if leaf_trips is not None:
+            warp = ids // 32
+            most = torch.zeros(int(warp[-1]) + 1, dtype=torch.int64, device=dev)
+            most.scatter_reduce_(0, warp, tested, "amax")
+            leaf_trips += most.sum()
         nxt = torch.where(box_hit & (count == 0), scene.hit_link[ptr],
                           scene.miss_link[ptr]).long()
         if any_hit:

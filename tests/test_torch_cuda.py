@@ -513,10 +513,21 @@ def test_steps_kernel_on_ray_kinds(dev, scenes, kind):
     assert (steps[t_max < 0] == 1).all()
 
 
-@pytest.mark.parametrize("n", [1, 5, 33, 1 << 20])
+@pytest.mark.parametrize("n", [1, 5, 31, 33, 4097, 1 << 20])
 def test_steps_kernel_batch_sizes(dev, scenes, n):
     _, sc, _ = scenes
     _steps_equal(sc, *_rays_of("dead_and_zero", sc, n, 32, dev))
+
+
+def test_steps_kernel_long_rays_among_short(dev, scenes):
+    """Every other ray dead, and a few long rays (from inside leaves,
+    across the scene) among short ones: steps, t, slot, u and v equal on
+    every ray."""
+    _, sc, _ = scenes
+    o, d, t_max = _rays_of("inside_leaves", sc, 1 << 16, 33, dev)
+    short = torch.arange(o.shape[0], device=dev) % 29 != 0
+    t_max[short] = torch.where(short[short].cumsum(0) % 2 == 0, -1.0, 0.0)
+    _steps_equal(sc, o, d, t_max)
 
 
 def _phase_a_equal(sc, o, d, t_max, d_slots):
@@ -807,36 +818,82 @@ def test_probes_refuse_bad_inputs(dev):
         br._LIB("idk_bench_reduce", [x, out, torch.empty_like(x), cycles], [7, 10])
 
 
-@pytest.mark.parametrize("cap", [0, 1, 7, 64, 1 << 30])
-@pytest.mark.parametrize("kind", ["incoherent", "dead_and_zero", "inside_leaves", "from_1e8"])
-def test_capped_kernels_match_plain(dev, scenes, kind, cap):
+def _card_scene():
+    """The scenes fixture's atrium, on the card."""
+    db = SceneDatabase(BuildSettings(**BUILD))
+    db.add_model(atrium(20_000))
+    return db.build("cuda")
+
+
+def _capped_equal(sc, o, d, t_max, cap):
     """The capped walks (trace_capped_kernel) against the plain stackless
     walk with the same cap: t, slot, u, v and occlusion equal on every ray
     (both visit the same nodes in the same order, with the same
     arithmetic); each call counts one capped launch and no trace_kernel
     launch."""
-    _, sc, _ = scenes
-    o, d, t_max = _rays_of(kind, sc, 1 << 16, 41, dev)
     kern.reset_launch_counts()
     got = kern.trace_closest(sc, o, d, t_max, max_steps=cap)
     occ = kern.trace_any(sc, o, d, t_max, max_steps=cap)
+    torch.cuda.synchronize()
     assert (kern._closest_capped.launches, kern._any_capped.launches) == (1, 1)
     assert kern.trace_closest.launches == kern.trace_any.launches == 0
     want = plain.trace_closest(sc, o, d, t_max, max_steps=cap)
     for k in ("t", "slot", "u", "v"):
-        assert torch.equal(getattr(got, k), getattr(want, k)), k
-    assert torch.equal(occ, plain.trace_any(sc, o, d, t_max, max_steps=cap))
+        assert torch.equal(getattr(got, k), getattr(want, k)), (k, cap)
+    assert torch.equal(occ, plain.trace_any(sc, o, d, t_max, max_steps=cap)), cap
 
 
-@pytest.mark.parametrize("n", [1, 5, 33, 1 << 20])
-def test_capped_kernels_batch_sizes(dev, scenes, n):
-    _, sc, _ = scenes
-    o, d, t_max = _rays_of("dead_and_zero", sc, n, 42, dev)
-    got = kern.trace_closest(sc, o, d, t_max, max_steps=48)
-    want = plain.trace_closest(sc, o, d, t_max, max_steps=48)
-    assert torch.equal(got.slot, want.slot) and torch.equal(got.t, want.t)
-    assert torch.equal(kern.trace_any(sc, o, d, t_max, max_steps=48),
-                       plain.trace_any(sc, o, d, t_max, max_steps=48))
+def _on_card_alone(body):
+    """Runs `body` in a process of its own that must return within
+    LAUNCH_TIMEOUT_S (the library's build included): a launch that never
+    returns fails the test, and the process is killed, instead of hanging
+    the session. `body` sees this module as `t`, `torch`, and the
+    card's atrium as `sc`."""
+    code = ("import sys, torch\n"
+            f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+            "import test_torch_cuda as t\n"
+            "sc = t._card_scene()\n"
+            f"{body}\n"
+            "print('equal')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=LAUNCH_TIMEOUT_S)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("equal"), proc.stderr
+
+
+@pytest.mark.parametrize("cap", [0, 1, 7, 64, 1 << 30])
+@pytest.mark.parametrize("kind", ["incoherent", "dead_and_zero", "inside_leaves", "from_1e8"])
+def test_capped_kernels_match_plain(dev, kind, cap):
+    """_capped_equal on each kind of ray at each cap."""
+    _on_card_alone(f"t._capped_equal(sc, *t._rays_of({kind!r}, sc, 1 << 16, 41, 'cuda'), {cap})")
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 33, 4097, 1 << 20])
+def test_capped_kernels_batch_sizes(dev, n):
+    """Batches that end inside a warp, fill one, and span many blocks, at
+    caps 0, 1, 7, 48, 64 and 2^30."""
+    _on_card_alone(f"rays = t._rays_of('dead_and_zero', sc, {n}, 42, 'cuda')\n"
+                   "for cap in (0, 1, 7, 48, 64, 1 << 30):\n"
+                   "    t._capped_equal(sc, *rays, cap)")
+
+
+def test_capped_kernels_every_other_ray_dead(dev):
+    """Every other ray dead (t_max < 0: one step at the root) among live
+    ones, at every cap."""
+    _on_card_alone("o, d, t_max = t._rays_of('incoherent', sc, 4097, 44, 'cuda')\n"
+                   "t_max[::2] = -1.0\n"
+                   "for cap in (0, 1, 7, 64, 1 << 30):\n"
+                   "    t._capped_equal(sc, o, d, t_max, cap)")
+
+
+def test_capped_kernels_long_rays_among_short(dev):
+    """A few long rays (from inside leaves, across the whole scene) among
+    short ones (dead, or t_max 0): most lanes of a warp stop early while one
+    walks on."""
+    _on_card_alone("o, d, t_max = t._rays_of('inside_leaves', sc, 1 << 16, 45, 'cuda')\n"
+                   "short = torch.arange(o.shape[0], device='cuda') % 29 != 0\n"
+                   "t_max[short] = torch.where(short[short].cumsum(0) % 2 == 0, -1.0, 0.0)\n"
+                   "for cap in (64, 1 << 30):\n"
+                   "    t._capped_equal(sc, o, d, t_max, cap)")
 
 
 def test_capped_kernels_refuse_bad_inputs(dev, scenes):

@@ -3,7 +3,8 @@
 batches, in turns, on one CUDA card.
 
     python3 trace_ab.py LABEL=SOURCE[@FLAGS] [LABEL=SOURCE[@FLAGS] ...] [--reps N]
-                        [--kinds trace steps phase_a phase_b pipeline] [--frames N]
+                        [--kinds trace steps capped phase_a phase_b pipeline]
+                        [--frames N]
 
 Each SOURCE is a trace.cu or a two_phase.cu (the trace_math.cuh it includes
 is looked up beside it), built with the port's nvcc flags plus FLAGS
@@ -24,7 +25,14 @@ The batches are chip_smoke.py's: the 2.8M atrium's 1920x1080 primaries
 frame's first bounce batch (closest), every trace of one deferred frame
 (VXGI 256^3), and the debug view's 1920x1080 primaries. trace.cu libraries
 run trace_closest/trace_any on the first four kinds and
-trace_closest_steps on the debug view's rays and the primaries; two_phase.cu
+trace_closest_steps on the debug view's rays and the primaries, and
+(`capped`) the capped walks (trace_closest / trace_any with max_steps) on
+the primaries, the shadow rays and the bounce batch at chip_smoke.py's
+phase 15 caps (chip_smoke.capped_caps), each steps or capped batch printed
+with the lane utilization of a ray a thread (chip_smoke.lane_utilization
+of the plain walk's steps) and its lockstep warps' loop and leaf trips,
+each capped batch also with the time the card takes at least to issue
+those trips (capped_issue_ms); two_phase.cu
 libraries run phase A (D = 8) on the primaries, the shadow rays and the
 bounce batch, phase B (closest on the primaries and the bounce batch,
 any-hit on the shadow rays) on the lists of the port's own phase A, and
@@ -34,8 +42,8 @@ to its denoised frames, then --frames frames a turn on the host clock.
 Each library is held to the first library of its kind: with the same
 interface, trace results by chip_smoke.check_agreement, steps, t, slot, u
 and v equal on every ray, phase A's cnt equal on every ray and its list
-sets where cnt <= D, phase B's t, slot, u and v (occlusion) equal on every
-ray. An older trace.cu does not round its
+sets where cnt <= D, phase B's and the capped walks' t, slot, u and v
+(occlusion) equal on every ray. An older trace.cu does not round its
 Möller–Trumbore test as the JAX package does (no fused multiply-adds), so
 its results are only reported: the share of rays with the first library's
 hit decision, and of those with t within 1e-5 relative. Times are
@@ -152,8 +160,8 @@ def binary_phase_a(lib, scene, o, d, t_max, d_slots):
 
 
 def tracer(path):
-    """(interface, (kind, scene, o, d, t_max) -> result) of the trace library
-    at path."""
+    """(interface, (kind, scene, o, d, t_max[, max_steps]) -> result) of the
+    trace library at path."""
     from idkengine_tpu_torch.ops import packet_trace as kern
 
     raw = ctypes.CDLL(path)
@@ -223,7 +231,7 @@ def phase_b_runner(lib):
     return run
 
 
-def check_phase_b(kind, got, want, what):
+def check_exact(kind, got, want, what):
     """t, slot, u and v (occlusion) equal on every ray."""
     import torch
 
@@ -264,6 +272,67 @@ def time_pipeline(db, cam, dev, libs, frames, card):
         cs.log(f"# two-phase pipeline frame (denoised, {cs.WIDTH}x{cs.HEIGHT}): {label} "
                f"{ms:.3f} ms/frame over {frames} frames; on {card}")
     return times
+
+
+# Warp instructions trace.cu's trace_capped_kernel issues, by kind, read
+# from its SASS (cuobjdump -sass; nvcc 12.8, sm_90a): a step at an interior
+# node, from the loop's head to its closing branch, and a triangle of a
+# leaf on the division's fast path (the closest-hit loop tests two a pass:
+# half of the pass). A leaf's entry and exit are left out, so the issue
+# time of these counts is a lower bound. CAPPED_SASS_SIZE is each
+# instantiation's instruction count in that machine code: a library whose
+# kernel has another is not the code these counts were read from, and gets
+# no issue time.
+STEP_INSTRUCTIONS = {"trace_closest": 44, "trace_any": 47}
+TRIANGLE_INSTRUCTIONS = {"trace_closest": 67, "trace_any": 68}
+CAPPED_SASS_SIZE = {"trace_closest": 456, "trace_any": 304}
+
+
+def capped_sass_sizes(path):
+    """kind -> instructions of the library's trace_capped_kernel<kind> in
+    its SASS."""
+    from idkengine_tpu_torch.tools import sass_count
+
+    sizes = {}
+    for name, instrs in sass_count.functions(sass_count.dump(path)).items():
+        args = None if isinstance(name, tuple) else sass_count.template_args(
+            name, "trace_capped_kernel")
+        if args:
+            sizes[("trace_closest", "trace_any")[args[0]]] = len(instrs)
+    return sizes
+
+
+def walk_trips(kind, args):
+    """(lane utilization of a ray a thread, loop trips, leaf trips) of the
+    plain walk on a steps or capped run's arguments (scene, o, d, t_max[,
+    cap]), a ray a lane in warps of chip_smoke.WARP that walk in lockstep."""
+    import torch
+
+    from idkengine_tpu_torch.ops import trace as plain
+
+    scene, o, d, t_max, *cap = args
+    steps = torch.zeros(o.shape[0], dtype=torch.int32, device=o.device)
+    leaf = torch.zeros(1, dtype=torch.int64, device=o.device)
+    plain._traverse(scene, o, d, t_max, kind == "trace_any", steps, cap[0] if cap else None,
+                    leaf_trips=leaf)
+    return cs.lane_utilization(steps), cs.warp_trips(steps), int(leaf.item())
+
+
+def capped_issue_ms(kind, trips, leaf, sms, clock_mhz):
+    """The least time the card takes to issue a capped walk's lockstep
+    trips at STEP_INSTRUCTIONS and TRIANGLE_INSTRUCTIONS: four warp
+    instructions a cycle on every SM at clock_mhz."""
+    n = trips * STEP_INSTRUCTIONS[kind] + leaf * TRIANGLE_INSTRUCTIONS[kind]
+    return n / (4 * sms * clock_mhz * 1e6) * 1e3
+
+
+def card_top_clock_mhz():
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
 
 
 def check_steps(got, want, what):
@@ -313,7 +382,7 @@ def main(argv=None):
     ap.add_argument("sources", nargs="+", help="LABEL=SOURCE[@FLAGS]")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--kinds", nargs="+",
-                    choices=("trace", "steps", "phase_a", "phase_b", "pipeline"),
+                    choices=("trace", "steps", "capped", "phase_a", "phase_b", "pipeline"),
                     default=("trace", "steps", "phase_a", "phase_b"),
                     help="what to time (default: every kernel; `pipeline` adds the two-phase "
                          "pipeline frame)")
@@ -369,6 +438,20 @@ def main(argv=None):
         for name, rest in (("steps debug view", (scene, o, d, t_max)),
                            ("steps primary", batches["primary"][1:])):
             runs.append((name, "trace_closest_steps", rest, fns, faces))
+    counted = []  # the labels whose trace_capped_kernel is the code the counts are from
+    if traces and "capped" in args.kinds:
+        for (label, source, _), (path, _) in zip(specs, built):
+            if label in traces:
+                sizes = capped_sass_sizes(path)
+                cs.log(f"# {label}: trace_capped_kernel SASS instructions {sizes}")
+                if sizes == CAPPED_SASS_SIZE:
+                    counted.append(label)
+        names = ("primary", "shadow", "bounce")
+        p99 = max(cs.steps_stats(*batches[name][1:])["steps_p99"] for name in names)
+        for name in names:
+            for cap in cs.capped_caps(p99):
+                runs.append((f"capped {name} cap {cap}", batches[name][0],
+                             (*batches[name][1:], cap), fns, faces))
     if phase_as and "phase_a" in args.kinds:
         fns = {label: (lambda f: lambda kind, *a: f(*a))(fn) for label, fn in phase_as.items()}
         faces = dict.fromkeys(phase_as, 1)
@@ -385,6 +468,8 @@ def main(argv=None):
             lists, _ = tp.phase_a(sc, o, d, t_max, D_SLOTS)
             runs.append((f"phase_b {name}", kind, (sc, lists, o, d, t_max), fns, faces))
 
+    clock = card_top_clock_mhz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     times = {label: {} for label in [*traces, *phase_as]}
     for name, kind, rest, fns, faces in runs:
         first = next(iter(fns))
@@ -396,8 +481,8 @@ def main(argv=None):
             if kind == "phase_a":
                 check_phase_a(got, ref, what)
                 note = "cnt equal on every ray, list sets equal where cnt <= D"
-            elif name.startswith("phase_b"):
-                check_phase_b(kind, got, ref, what)
+            elif name.startswith(("phase_b", "capped")):
+                check_exact(kind, got, ref, what)
                 note = "t, slot, u, v (occlusion) equal on every ray"
             elif faces[label] != faces[first]:
                 same, close = report_loose(kind, got, ref)
@@ -410,6 +495,19 @@ def main(argv=None):
                 agree, _ = cs.check_agreement(kind, got, ref, what)
                 note = f"agrees on {agree:.6f}"
             cs.log(f"# {name} ({n_rays} rays, {kind}): {label} against {first}: {note}")
+        if name.startswith(("capped", "steps")):
+            util, trips, leaf = walk_trips(kind, rest)
+            note = (f"# {name}: lane utilization of a ray a thread {util:.4f}; lockstep warps "
+                    f"take {trips} loop trips and {leaf} leaf trips")
+            if name.startswith("capped") and counted:
+                issue = capped_issue_ms(kind, trips, leaf, sms, clock)
+                note += (f": at least {issue:.4f} ms of issue for {', '.join(counted)} "
+                         f"({STEP_INSTRUCTIONS[kind]} and {TRIANGLE_INSTRUCTIONS[kind]} "
+                         f"instructions, {clock:.0f} MHz)")
+            elif name.startswith("capped"):
+                note += ("; no issue time: no library's trace_capped_kernel is the code "
+                         "STEP_INSTRUCTIONS were read from")
+            cs.log(note)
         for label in [*fns, *reversed(fns)]:
             ms = cs.cuda_time_ms(lambda: fns[label](kind, *rest), args.reps)
             times[label].setdefault(name, []).append(ms)
