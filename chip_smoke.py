@@ -92,12 +92,45 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      each setting under the profiler;
  18. each new pass, and the path-tracer pipeline with the adaptive bounce
      budget, rendered small on the card and on the CPU;
- 19. print the kernels' JSON line, then the result line.
+     phases 19 and 20 share one database: phase 3's atrium added unhoisted,
+     its root node animated (a LINEAR translation and a turn about y of at
+     most DYN_TURN degrees, which move every vertex), beside
+     INSTANCE_COUNT instances of a 65k-triangle sphere with a BLAS of its
+     own (transforms from --seed: scale 0.5-1.5, a turn about y, in front
+     of the camera);
+ 19. dynamics at full width: update_device at two times, each checked
+     against the C++ host refit of the vertices it made (boxes bit for bit
+     in the threaded arrays and in the binary, threaded and 4-wide records,
+     the 4-wide ones through bvh4_child; topology words unchanged; tri_vec
+     the slot triangles) and against the host update at the same time
+     (UPDATE_TOL); warm CUDA-event times of update_device in parts
+     (transform, level sweeps, record refresh), of the host update and of
+     linear-blend skinning over the atrium's vertices (4 of 64 joints a
+     vertex, from --seed); on the refitted scene the primaries' kernel
+     trace against the plain trace, and a path-traced frame at phase 5's
+     settings timed beside phase 5's;
+ 20. the instanced frame at full width: its primaries, shadow rays and
+     first bounce batch through the two-level kernel path (1 + 16 launches
+     a call) and the plain two-level path, t, slot, u, v, the instance id
+     and occlusion under phase 4's rule (the same hit mask, slot and
+     instance equal on AGREE of the rays, t, u, v bit-equal there: the trace
+     kernel visits near children first, so a hit whose t falls below its
+     box's entry distance can be culled there and kept by the plain DFS
+     walk), and through the capped kernel (the plain walk's order) at
+     CAP_LOW equal on every ray; the share of primaries on an instance;
+     PathTracer(instances=...) at 1920x1080, depth 2, sorting on, roulette
+     off: warm-up, timed frames with the counts reset just before,
+     launches a frame, one profiled frame; the same frame once at
+     max_trace_steps = CAP_LOW; set_instance_transform moves instance 0 out
+     of view (its id leaves the primaries, no BLAS is rebuilt, the TLAS
+     is); a small instanced scene (the Cornell box and two spheres, 48x48)
+     on the card against the CPU;
+ 21. print the kernels' JSON line, then the result line.
 
 The script prints its wall time before the kernels' line. It imports
 nothing of JAX. Without a CUDA card it exits nonzero before printing any
-result. `--seed` (default 0) seeds the textured
-scene's textures.
+result. `--seed` (default 0) seeds the textured scene's textures, the
+instances' transforms and the skinning's joints.
 """
 import argparse
 import json
@@ -147,6 +180,13 @@ KERNELS_WHERE = {  # route, source and the Pallas kernels each wrapper's kernel 
                              "replaces": "idkengine_tpu/ops/trace.py:122"},
     "trace_any_capped": {"route": "cuda", "source": "idkengine_tpu_torch/csrc/trace.cu",
                          "replaces": "idkengine_tpu/ops/trace.py:279"},
+    # the two-level traces: XLA loops in the JAX package (no Pallas kernel),
+    # the trace kernel (or the capped one) once for the static scene and once
+    # an instance here
+    "trace_closest_two_level": {"route": "cuda", "source": "idkengine_tpu_torch/csrc/trace.cu",
+                                "replaces": "idkengine_tpu/ops/trace.py:177"},
+    "trace_any_two_level": {"route": "cuda", "source": "idkengine_tpu_torch/csrc/trace.cu",
+                            "replaces": "idkengine_tpu/ops/trace.py:227"},
 }
 CAP_LOW = 64  # phase 15's first cap: below most primaries' binary-tree steps
 CAP_STEP = 64  # the second cap: the next multiple of this above every batch's p99
@@ -182,6 +222,15 @@ TEXTURED_CALLS = ("closest", "alpha re-trace 1", "alpha re-trace 2", "NEE round 
                   "NEE round 2", "NEE any-hit tail", "env-NEE round 1", "env-NEE round 2",
                   "env-NEE any-hit tail")
 PT_RANGES = "pt/"  # PathTracer's profiler ranges (render/pathtracer.py)
+DYN_TIMES = (0.5, 1.25)  # phase 19's animation times (keyframes at 0, 1, 2 s)
+DYN_SHIFT = (0.6, 0.3, -0.4)  # the root's translation at 1 s, m
+DYN_TURN = 5.0  # the root's turn about y at 1 s, degrees
+UPDATE_TOL = dict(rtol=1e-5, atol=1e-4)  # host update vs update_device (tests/test_dynamic.py's)
+DYN_REPS = 5  # warm timed calls of each part of update_device
+INSTANCE_COUNT = 16
+SPHERE_RES = dict(n_lat=128, n_lon=256)  # the instanced sphere: 65,024 triangles
+SKIN_JOINTS = 64  # the skinning timing's joints, four a vertex
+INSTANCED_SHARE = 0.01  # the least share of primaries on an instance
 PROBE_CHECK_ITERS = 256  # steps of each probe's kernel-vs-plain check
 PROBE_CHECK_VISITS = 16  # leaf visits of bench_mxu_leaf's kernel-vs-plain check
 PROBE_SRC = "idkengine_tpu_torch/csrc/"
@@ -385,9 +434,19 @@ def main_path_batches(cam, pt, dev):
     directions up to 5 units; primary misses become dead rays, as NEE makes
     them) and the frame's first bounce batch (closest, sorted, as the frame
     traces it). Each is (kind, o, d, t_max)."""
+    from idkengine_tpu_torch.ops import packet_trace as kern
+
+    o, d, t_max = primary_rays(cam, dev)
+    hit = kern.trace_closest(pt.scene, o, d, t_max)
+    return {"primary": ("trace_closest", o, d, t_max),
+            "shadow": ("trace_any", *shadow_rays(o, d, hit)),
+            "bounce": ("trace_closest", *capture_bounce_batch(pt, cam))}
+
+
+def primary_rays(cam, dev):
+    """The frame's 1920x1080 primary rays (o, d, t_max) of its first sample."""
     import torch
 
-    from idkengine_tpu_torch.ops import packet_trace as kern
     from idkengine_tpu_torch.render.camera import generate_rays
     from idkengine_tpu_torch.utils import rng
 
@@ -396,16 +455,20 @@ def main_path_batches(cam, pt, dev):
     state, u_pix = rng.uniform2(state)
     state, u_lens = rng.uniform2(state)
     o, d = generate_rays(cam.ray_params(WIDTH, HEIGHT), WIDTH, HEIGHT, u_pix, u_lens)
-    t_max = torch.full((r,), 3.4e38, device=dev)
-    hit = kern.trace_closest(pt.scene, o, d, t_max)
-    g = torch.Generator(device=dev).manual_seed(0)
-    sd = torch.randn((r, 3), generator=g, device=dev)
+    return o, d, torch.full((r,), 3.4e38, device=dev)
+
+
+def shadow_rays(o, d, hit):
+    """Shadow-like rays from the hit points (random directions up to 5
+    units; misses become dead rays, as NEE makes them): (o, d, t_max)."""
+    import torch
+
+    r = o.shape[0]
+    g = torch.Generator(device=o.device).manual_seed(0)
+    sd = torch.randn((r, 3), generator=g, device=o.device)
     sd = (sd / torch.linalg.vector_norm(sd, dim=-1, keepdim=True)).contiguous()
     hp = o + d * torch.where(hit.slot >= 0, hit.t, 0.0)[:, None]
-    so = (hp - d * 1e-3).contiguous()
-    s_tmax = torch.where(hit.slot >= 0, 5.0, -1.0)
-    return {"primary": ("trace_closest", o, d, t_max), "shadow": ("trace_any", so, sd, s_tmax),
-            "bounce": ("trace_closest", *capture_bounce_batch(pt, cam))}
+    return (hp - d * 1e-3).contiguous(), sd, torch.where(hit.slot >= 0, 5.0, -1.0)
 
 
 def log_batch(kind, label, o, m, agree, extra=""):
@@ -449,6 +512,8 @@ def read_launch_counts():
 
     return {"trace_closest": packet_trace.trace_closest.launches,
             "trace_any": packet_trace.trace_any.launches,
+            "trace_closest_two_level": packet_trace.trace_closest_two_level.launches,
+            "trace_any_two_level": packet_trace.trace_any_two_level.launches,
             "trace_closest_steps": packet_trace.trace_closest_steps.launches,
             "trace_closest_capped": packet_trace._closest_capped.launches,
             "trace_any_capped": packet_trace._any_capped.launches,
@@ -1824,6 +1889,458 @@ def phase_small_passes(dev, seed):
             raise AssertionError(f"the card's small {label} render disagrees with the CPU's")
 
 
+def sphere_model(n_lat, n_lon, radius=1.0):
+    """tests/test_instancing.py's sphere model (one primitive, one node)."""
+    import numpy as np
+
+    from idkengine_tpu_torch.scene.model import Material, MeshPrimitive, Model, Node
+    from idkengine_tpu_torch.scene.procedural import make_uv_sphere
+
+    pos, idx = make_uv_sphere([0.0, 0.0, 0.0], radius, n_lat=n_lat, n_lon=n_lon)
+    prim = MeshPrimitive(positions=pos.astype(np.float32), indices=idx.astype(np.uint32))
+    prim.ensure_normals()
+    return Model(primitives=[prim], nodes=[Node(mesh_primitives=[0])], root_nodes=[0],
+                 materials=[Material(name="inst",
+                                     base_color=np.array([0.9, 0.2, 0.2, 1], np.float32))])
+
+
+def instance_matrices(seed, count=INSTANCE_COUNT):
+    """(count,4,4) world matrices from `seed`: a uniform scale of 0.5-1.5, a
+    turn about y, x in [-8, 8], y in [1, 4], z in [-20, 16] m (in front of
+    the camera at (0, 3, 24))."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mats = np.tile(np.eye(4, dtype=np.float32), (count, 1, 1))
+    for m in mats:
+        s, a = rng.uniform(0.5, 1.5), rng.uniform(0.0, 2 * np.pi)
+        c, n = np.cos(a), np.sin(a)
+        m[:3, :3] = s * np.array([[c, 0, n], [0, 1, 0], [-n, 0, c]])
+        m[:3, 3] = rng.uniform([-8, 1, -20], [8, 4, 16])
+    return mats
+
+
+def dynamic_scene(dev, seed, tris=TRIS):
+    """Phases 19-20's database: phase 3's atrium unhoisted with its root
+    node animated, and INSTANCE_COUNT instances of the sphere; phase 3's
+    lights. Returns (db, build seconds)."""
+    import numpy as np
+
+    from idkengine_tpu_torch.bvh.builder import BuildSettings
+    from idkengine_tpu_torch.scene.model import Animation, AnimationChannel, AnimationSampler
+    from idkengine_tpu_torch.scene.procedural import atrium
+    from idkengine_tpu_torch.scene.scene_db import SceneDatabase
+
+    model = atrium(tris)
+    times = np.float32([0.0, 1.0, 2.0])
+    half = np.radians(DYN_TURN) / 2
+    shift = np.float32([[0, 0, 0], DYN_SHIFT, [0, 0, 0]])
+    turn = np.float32([[0, 0, 0, 1], [0, np.sin(half), 0, np.cos(half)], [0, 0, 0, 1]])
+    model.animations.append(Animation("sway", [
+        AnimationChannel(0, "translation", AnimationSampler(times, shift)),
+        AnimationChannel(0, "rotation", AnimationSampler(times, turn))]))
+    t0 = time.perf_counter()
+    db = SceneDatabase(BuildSettings(**BUILD))
+    db.add_model(model, hoist=False)
+    db.add_instanced_model(sphere_model(**SPHERE_RES), instance_matrices(seed))
+    db.build(dev)
+    torch_sync(dev)
+    for pos, rad, r in LIGHTS:
+        db.lights.add(pos, rad, radius=r)
+    return db, time.perf_counter() - t0
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def check_device_refit(db, before, after):
+    """Phase 19's check of one update_device: the vertices it made (pulled
+    to the host) refitted by the C++ core (BLAS.refit, FlatBvh.refresh_boxes)
+    give the refitted scene's boxes bit for bit, in the threaded arrays and
+    in the box words of every record table (the 4-wide ones through
+    bvh4_child, empty children zero); topology words are those of `before`;
+    tri_vec holds the slot triangles of those vertices."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    verts = db.device_vertices.cpu().numpy()
+    db.blas.refit(verts)
+    flat = replace(db._flat)
+    flat.refresh_boxes(db.blas.nodes)
+    dev = after.device
+    lo = torch.from_numpy(flat.node_min).to(dev)
+    hi = torch.from_numpy(flat.node_max).to(dev)
+    if not (_bits_equal(after.node_min, lo) and _bits_equal(after.node_max, hi)):
+        raise AssertionError("update_device's boxes differ from the host refit's")
+    lo_i, hi_i = lo.view(torch.int32), hi.view(torch.int32)
+    for name in ("bvh_nodes", "bvh_thread"):
+        rec, old = getattr(after, name), getattr(before, name)
+        if not (torch.equal(rec[:, 0:3], lo_i) and torch.equal(rec[:, 4:7], hi_i)
+                and torch.equal(rec[:, [3, 7]], old[:, [3, 7]])):
+            raise AssertionError(f"update_device's {name} differ from the host refit's boxes")
+    child = after.bvh4_child.long()
+    has, src = child >= 0, torch.clamp(child, min=0)
+    wide = after.bvh4_nodes
+    for a in range(3):
+        for h, words in ((0, lo_i), (4, hi_i)):
+            want = torch.where(has, words[src, a], 0)
+            if not torch.equal(wide[:, 8 * a + h:8 * a + h + 4], want):
+                raise AssertionError("update_device's 4-wide records differ from the host "
+                                     "refit's boxes")
+    if not torch.equal(wide[:, 24:], before.bvh4_nodes[:, 24:]):
+        raise AssertionError("update_device changed the 4-wide records' topology words")
+    p = verts[db._indices[db._slot_tri.astype(np.int64)]]
+    e1, e2 = p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]
+    want = np.concatenate([p[:, 0], e1, e2, np.zeros_like(e1)], 1)
+    if not np.array_equal(after.tri_vec.cpu().numpy(), want):
+        raise AssertionError("update_device's tri_vec is not the slot triangles")
+
+
+def phase_dynamics(db, cam, dev, card, seed, frame_ref):
+    """Phase 19 (see the module's docstring). Returns the launch counts of
+    the refitted scene's timed frames."""
+    import numpy as np
+    import torch
+
+    from idkengine_tpu_torch.render import PathTracer, PathTracerSettings
+    from idkengine_tpu_torch.scene import skinning
+
+    t_start = time.perf_counter()
+    for t in DYN_TIMES:
+        before = db.device_scene
+        t0 = time.perf_counter()
+        after = db.update_device(t)
+        torch_sync(dev)
+        first_s = time.perf_counter() - t0
+        check_device_refit(db, before, after)
+        host = db.update(t)
+        diff = {k: (getattr(after, k) - getattr(host, k)).abs().max().item()
+                for k in ("node_min", "node_max", "tri_p0")}
+        for k in diff:
+            if not torch.allclose(getattr(after, k), getattr(host, k), **UPDATE_TOL):
+                raise AssertionError(f"update_device's {k} differs from the host update's")
+        log(f"# update_device({t}): first call {first_s:.2f} s (the refit plan included); boxes "
+            f"bit-equal to the C++ host refit of its vertices in node_min/max, bvh_nodes, "
+            f"bvh_thread and bvh4_nodes (through bvh4_child), topology words unchanged, tri_vec "
+            f"the slot triangles; against the host update at {t}: max |diff| node_min "
+            f"{diff['node_min']:.3g}, node_max {diff['node_max']:.3g}, tri_p0 "
+            f"{diff['tri_p0']:.3g} (limit rtol {UPDATE_TOL['rtol']}, atol {UPDATE_TOL['atol']})")
+
+    t = DYN_TIMES[-1]
+    host_ms = cuda_time_ms(lambda: db.update(t), 2)
+    refitter = db._get_refitter()
+    sampled = db.placement_matrices(t)
+    verts, normals = db.transform_vertices(*sampled)
+    tris = refitter.triangles(verts, normals)
+    node_min, node_max = refitter.boxes(tris["corners"], db.device_scene)
+    parts = {
+        "transform": lambda: db.transform_vertices(*db.placement_matrices(t)),
+        "level sweeps": lambda: refitter.boxes(tris["corners"], db.device_scene),
+        "record refresh": lambda: refitter.records(
+            db.device_scene, refitter.triangles(verts, normals), node_min, node_max),
+        "update_device": lambda: db.update_device(t),
+    }
+    ms = {k: cuda_time_ms(fn, DYN_REPS) for k, fn in parts.items()}
+    n_verts, n_tris = verts.shape[0], db.device_scene.tri_p0.shape[0]
+    log(f"# update_device at full width ({n_verts} vertices, {n_tris} slots, "
+        f"{len(refitter.plan.levels)} interior levels; warm, {DYN_REPS} calls each): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f"; host update (C++ refit, flatten, upload, 4-wide collapse) {host_ms:.1f} ms; "
+        f"on {card}")
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    joints = torch.randint(0, SKIN_JOINTS, (n_verts, 4), generator=g, device=dev)
+    weights = torch.rand((n_verts, 4), generator=g, device=dev)
+    weights = weights / weights.sum(1, keepdim=True)
+    jm = torch.eye(4, device=dev).repeat(SKIN_JOINTS, 1, 1)
+    q, _ = torch.linalg.qr(torch.randn((SKIN_JOINTS, 3, 3), generator=g, device=dev))
+    jm[:, :3, :3], jm[:, :3, 3] = q, torch.randn((SKIN_JOINTS, 3), generator=g, device=dev)
+    skin_ms = cuda_time_ms(lambda: (skinning.skin_positions(verts, joints, weights, jm),
+                                    skinning.skin_normals(normals, joints, weights, jm)),
+                           DYN_REPS)
+    sp = skinning.skin_positions(verts, joints, weights, jm)
+    if not bool(torch.isfinite(sp).all()):
+        raise AssertionError("skinned positions are not finite")
+    log(f"# skinning {n_verts} vertices, 4 of {SKIN_JOINTS} joints a vertex (seed {seed}): "
+        f"skin_positions + skin_normals {skin_ms:.3f} ms; on {card}")
+
+    scene = db.update_device(t)
+    o, d, t_max = primary_rays(cam, dev)
+    _, m, agree = compare_trace("trace_closest", scene, o, d, t_max)
+    log(f"# trace_closest on the refitted scene, primaries ({o.shape[0]} rays): kernel "
+        f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms, plain {m['plain_ms']:.1f} ms; "
+        f"agreement {agree:.6f}; on {card}")
+    settings = PathTracerSettings(ray_depth=DEPTH, russian_roulette=False, do_ray_sorting=True,
+                                  sky_strength=1.0)
+    pt = PathTracer(scene, db.materials.soa(), db.lights.soa(), WIDTH, HEIGHT, settings,
+                    device=dev)
+    pt.render_frame(cam)  # warm-up
+    torch_sync(dev)
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_FRAMES):
+        img = pt.render_frame(cam)
+    torch_sync(dev)
+    frame_ms = (time.perf_counter() - t0) / TIMED_FRAMES * 1e3
+    launches = read_launch_counts()
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()) or \
+            not img.std().item() > 0:
+        raise AssertionError("the refitted scene's image is not a finite, non-flat array")
+    for name in ("trace_closest", "trace_any"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched on the refitted scene's frame")
+    log(f"# refitted scene's frame: {frame_ms:.2f} ms/frame (phase 5's {frame_ref['ms']:.2f}), "
+        f"{WIDTH}x{HEIGHT} depth {DEPTH}; launches in {TIMED_FRAMES} frames {launches}; on "
+        f"{card}")
+    del pt
+    log(f"# phase 19 (dynamics) took {time.perf_counter() - t_start:.1f} s")
+    return launches, dict(ms, host_update_ms=host_ms, skin_ms=skin_ms, frame_ms=frame_ms)
+
+
+def check_two_level(kind, got, want, what, exact: bool) -> tuple[int, float]:
+    """Raises unless a two-level trace agrees with its plain version. With
+    `exact` (the capped kernel, which walks the plain version's order):
+    t, slot, u, v, the instance id and occlusion equal on every ray.
+    Without (the trace kernel, near children first): occlusion equal on
+    every ray; for closest hits phase 4's rule (check_agreement) with the
+    instance id beside the slot: the same hit mask, slot and instance equal
+    on at least AGREE of the rays, t, u and v bit-equal there. Returns (the
+    rays where slot or instance differ, the largest |difference| in t or
+    occlusion)."""
+    import torch
+
+    if kind == "trace_any":
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: occlusion differs on {(got != want).sum().item()} rays")
+        return 0, 0.0
+    (hit, inst), (ref, ref_inst) = got, want
+    same = (hit.slot == ref.slot) & (inst == ref_inst)
+    n_diff = int((~same).sum().item())
+    for k in ("t", "u", "v"):
+        if not torch.equal(getattr(hit, k)[same], getattr(ref, k)[same]):
+            raise AssertionError(f"{what}: {k} differs where slot and instance are equal")
+    if not torch.equal(hit.slot >= 0, ref.slot >= 0):
+        raise AssertionError(f"{what}: the hit masks differ")
+    if (exact and n_diff) or n_diff > (1 - AGREE) * hit.slot.numel():
+        raise AssertionError(f"{what}: slot or instance differs on {n_diff} rays")
+    both = (hit.slot >= 0) & (ref.slot >= 0)
+    return n_diff, torch.where(both, hit.t - ref.t, 0.0).abs().max().item()
+
+
+def _scene_bytes(scene) -> int:
+    """The smallest node table a walk can take and the triangles at 36 B a slot."""
+    return (min(scene.bvh4_nodes.numel(), scene.bvh_nodes.numel()) * 4
+            + 3 * scene.tri_p0.numel() * 4)
+
+
+def compare_two_level(kind, static, iset, o, d, t_max, card, label, max_steps=None):
+    """One two-level trace (kind "trace_closest" or "trace_any") through the
+    kernels against the plain two-level trace on one batch (check_two_level,
+    exact with max_steps); its launches, time and bound. Returns (the kernel
+    path's result, its numbers for the kernels' line)."""
+    from idkengine_tpu_torch.ops import packet_trace as kern
+    from idkengine_tpu_torch.ops import trace as plain
+
+    name = f"{kind}_two_level"
+    kw = {"slot_off": iset.slot_off} if kind == "trace_closest" else {}
+    kw["max_steps"] = max_steps
+    args = (static, iset.scenes, iset.inv, iset.boxes, o, d, t_max)
+    reset_all_launch_counts()
+    got = getattr(kern, name)(*args, **kw)
+    torch_sync(o.device)
+    launches = getattr(kern, name).launches
+    if launches != 1 + len(iset.scenes):
+        raise AssertionError(f"{name} made {launches} launches, not {1 + len(iset.scenes)}")
+    t0 = time.perf_counter()
+    want = getattr(plain, name)(*args, **kw)
+    torch_sync(o.device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_diff, err = check_two_level(kind, got, want, f"{name}, {label}", max_steps is not None)
+    ms = cuda_time_ms(lambda: getattr(kern, name)(*args, **kw), 10)
+    r = o.shape[0]
+    scenes = {id(s): s for s in iset.scenes}.values()
+    nbytes = (r * 28 + r * (20 if kind == "trace_closest" else 1) + _scene_bytes(static)
+              + sum(_scene_bytes(s) for s in scenes))
+    m = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+             bound_by="bytes", library_ms=None)
+    share = ((got[1] >= 0) if kind == "trace_closest" else got).float().mean().item()
+    cap = "" if max_steps is None else f", max_steps {max_steps}"
+    log(f"# {name}, {label}{cap} ({r} rays): {launches} launches a call, kernels {ms:.4f} ms, "
+        f"bound {m['bound_ms']:.4f} ms, plain {plain_ms:.1f} ms; "
+        + (f"slot or instance differ on {n_diff} rays, t, u, v equal elsewhere, max |t "
+           f"diff| {err:g}; on an instance {share:.4f}"
+           if kind == "trace_closest" else f"occlusion equal on every ray; occluded {share:.4f}")
+        + f"; on {card}")
+    return got, dict(m, batches=[dict(batch=label, rays=r, max_steps=max_steps, differ=n_diff,
+                                      **m)])
+
+
+def small_instanced_db(device):
+    """The Cornell box and two instances of a sphere (tests/test_instancing.py)."""
+    import numpy as np
+
+    from idkengine_tpu_torch.bvh.builder import BuildSettings
+    from idkengine_tpu_torch.scene.procedural import cornell_box
+    from idkengine_tpu_torch.scene.scene_db import SceneDatabase
+
+    mats = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    mats[1, :3, :3] *= 1.5
+    mats[:, :3, 3] = [[150, 380, 250], [400, 380, 250]]
+    db = SceneDatabase(BuildSettings(max_leaf_triangle_count=12, traversal_cost=4.0))
+    db.add_model(cornell_box(emissive_quad=False))
+    db.add_instanced_model(sphere_model(12, 16, radius=50.0), mats)
+    db.build(device)
+    db.lights.add([278, 480, 279.5], [6, 6, 6], radius=45.0)
+    return db
+
+
+def phase_instanced(db, cam, dev, card, frame_ref):
+    """Phase 20 (see the module's docstring). Returns (the launch counts of
+    the instanced frames, the two-level entries' numbers for the kernels'
+    line)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from idkengine_tpu_torch.ops import packet_trace as kern
+    from idkengine_tpu_torch.render import Camera, PathTracer, PathTracerSettings
+    from idkengine_tpu_torch.render import pathtracer as pathtracer_mod
+
+    t_start = time.perf_counter()
+    iset = db.instance_set()
+    settings = PathTracerSettings(ray_depth=DEPTH, russian_roulette=False, do_ray_sorting=True,
+                                  sky_strength=1.0)
+    t0 = time.perf_counter()
+    pt = PathTracer(db.device_scene, db.materials.soa(), db.lights.soa(), WIDTH, HEIGHT,
+                    settings, instances=iset, inst_attr_srcs=db._inst_attr_srcs, device=dev)
+    torch_sync(dev)
+    init_s = time.perf_counter() - t0
+    # the frame's first bounce batch, recorded by standing in for the
+    # tracer's two-level closest-hit trace (its warm-up frame)
+    calls, fn = [], pathtracer_mod.trace_closest_two_level
+
+    def recording(*args, **kw):
+        calls.append(args[4:7])
+        return fn(*args, **kw)
+
+    pathtracer_mod.trace_closest_two_level = recording
+    try:
+        pt.render_frame(cam)
+    finally:
+        pathtracer_mod.trace_closest_two_level = fn
+    if len(calls) != DEPTH:
+        raise AssertionError(f"the instanced frame made {len(calls)} closest-hit traces")
+    log(f"# instanced scene: {db.meta.n_triangles} static triangles, {len(iset.scenes)} "
+        f"instances of a {iset.scenes[0].tri_p0.shape[0]}-triangle sphere ({len(db._inst_blas)} "
+        f"BLAS, {iset.scenes[0].bvh4_nodes.shape[0]} 4-wide records); tracer init "
+        f"{init_s:.2f} s")
+
+    static = db.device_scene
+    o, d, t_max = primary_rays(cam, dev)
+    timings = {}
+    (hit, inst), m = compare_two_level("trace_closest", static, iset, o, d, t_max, card,
+                                       "primary batch")
+    timings["trace_closest_two_level"] = m
+    share = (inst >= 0).float().mean().item()
+    if share < INSTANCED_SHARE:
+        raise AssertionError(f"only {share:.4f} of the primaries hit an instance")
+    _, m = compare_two_level("trace_any", static, iset, *shadow_rays(o, d, hit), card,
+                             "shadow batch")
+    timings["trace_any_two_level"] = m
+    _, m = compare_two_level("trace_closest", static, iset, *calls[1], card, "bounce batch")
+    timings["trace_closest_two_level"]["batches"] += m["batches"]
+    del calls
+    for kind, rays in (("trace_closest", (o, d, t_max)), ("trace_any", shadow_rays(o, d, hit))):
+        _, m = compare_two_level(kind, static, iset, *rays, card,
+                                 "primary batch" if kind == "trace_closest" else "shadow batch",
+                                 max_steps=CAP_LOW)
+        timings[f"{kind}_two_level"]["batches"] += m["batches"]
+
+    reset_all_launch_counts()
+    rays = 0.0
+    t0 = time.perf_counter()
+    for _ in range(TIMED_FRAMES):
+        img = pt.render_frame(cam)
+        rays += float(pt.last_rays_traced)
+    torch_sync(dev)
+    frame_ms = (time.perf_counter() - t0) / TIMED_FRAMES * 1e3
+    launches = {"pathtracer_instanced": read_launch_counts()}
+    per_frame = {k: v / TIMED_FRAMES for k, v in launches["pathtracer_instanced"].items() if v}
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()) or \
+            not img.std().item() > 0:
+        raise AssertionError("the instanced image is not a finite, non-flat array")
+    for name in ("trace_closest_two_level", "trace_any_two_level"):
+        if launches["pathtracer_instanced"][name] == 0:
+            raise AssertionError(f"{name} was not launched on the instanced frame")
+    log(f"# instanced frame: {frame_ms:.2f} ms/frame (phase 5's {frame_ref['ms']:.2f}), "
+        f"{rays / TIMED_FRAMES / 1e6:.3f} Mrays/frame, {WIDTH}x{HEIGHT} depth {DEPTH}, "
+        f"{INSTANCE_COUNT} instances; launches a frame {per_frame}; on {card}")
+    profile_frame(lambda: pt.render_frame(cam), "instanced frame",
+                  lambda k: k.startswith(PT_RANGES))
+    del pt
+
+    capped = PathTracer(db.device_scene, db.materials.soa(), db.lights.soa(), WIDTH, HEIGHT,
+                        replace(settings, max_trace_steps=CAP_LOW), instances=iset,
+                        inst_attr_srcs=db._inst_attr_srcs, device=dev)
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    img = capped.render_frame(cam)
+    torch_sync(dev)
+    capped_ms = (time.perf_counter() - t0) * 1e3
+    launches["pathtracer_instanced_cap"] = read_launch_counts()
+    if not bool(torch.isfinite(img).all()) or \
+            launches["pathtracer_instanced_cap"]["trace_closest_capped"] == 0:
+        raise AssertionError("the capped instanced frame is not finite or launched no capped "
+                             "kernel")
+    log(f"# instanced frame at max_trace_steps {CAP_LOW}: {capped_ms:.2f} ms (one frame, "
+        f"compiled kernels warm); launches {launches['pathtracer_instanced_cap']}; on {card}")
+    del capped
+
+    builds = [b.build_ms for b in db._inst_blas]
+    tlas = db.tlas
+    moved = np.eye(4, dtype=np.float32)
+    moved[:3, 3] = [0.0, 1000.0, 0.0]
+    before = int((inst == 0).sum().item())
+    t0 = time.perf_counter()
+    db.set_instance_transform(0, moved)
+    move_ms = (time.perf_counter() - t0) * 1e3
+    iset2 = db.instance_set()
+    _, inst2 = kern.trace_closest_two_level(static, iset2.scenes, iset2.inv, iset2.boxes, o, d,
+                                            t_max, slot_off=iset2.slot_off)
+    after = int((inst2 == 0).sum().item())
+    if before == 0 or after != 0:
+        raise AssertionError(f"instance 0 on {before} primaries before the move, {after} after")
+    if [b.build_ms for b in db._inst_blas] != builds or db.tlas is tlas or \
+            not db.tlas.nodes["max"][0][1] >= 1000.0:
+        raise AssertionError("set_instance_transform rebuilt a BLAS or left the TLAS")
+    log(f"# set_instance_transform(0): {move_ms:.2f} ms on the host; instance 0 on {before} "
+        f"primaries before, {after} after; no BLAS rebuilt, the TLAS rebuilt "
+        f"({db.tlas.nodes.shape[0]} nodes)")
+
+    small_cam = Camera(position=np.array([278, 273, -800], np.float32), yaw=90.0, fov_y=38.0)
+    imgs = []
+    for device in (dev, "cpu"):
+        sdb = small_instanced_db(device)
+        spt = PathTracer(sdb.device_scene, sdb.materials.soa(), sdb.lights.soa(), 48, 48,
+                         PathTracerSettings(ray_depth=DEPTH, sky_strength=0.0),
+                         instances=sdb.instance_set(), inst_attr_srcs=sdb._inst_attr_srcs,
+                         device=device)
+        imgs.append(spt.render_frame(small_cam).cpu().numpy())
+    rmse = float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2)))
+    log(f"# small instanced scene 48x48 (the Cornell box, two spheres): card vs CPU RMSE "
+        f"{rmse:.3g} (limit {SMALL_RMSE})")
+    if not (rmse <= SMALL_RMSE and imgs[0].std() > 0):
+        raise AssertionError("the card's small instanced render disagrees with the CPU's")
+    log(f"# phase 20 (instanced frame) took {time.perf_counter() - t_start:.1f} s")
+    return launches, timings
+
+
 def main():
     import torch
 
@@ -1883,7 +2400,21 @@ def main():
     torch.cuda.empty_cache()
     log(f"# phases 1-17 took {time.perf_counter() - t_start:.1f} s")
     phase_small_passes(dev, args.seed)
-    log(f"# phases 1-18 took {time.perf_counter() - t_start:.1f} s (the run's wall time)")
+    log(f"# phases 1-18 took {time.perf_counter() - t_start:.1f} s")
+    del db, scene
+    torch.cuda.empty_cache()
+    t_dyn = time.perf_counter()
+    dyn_db, build_s = dynamic_scene(dev, args.seed)
+    log(f"# phases 19-20's database: animated atrium {dyn_db.meta.n_triangles} tris, "
+        f"{INSTANCE_COUNT} sphere instances; built in {build_s:.1f} s")
+    dyn_launches, _ = phase_dynamics(dyn_db, cam, dev, card, args.seed, factor_frame)
+    launches["pathtracer_refitted"] = dyn_launches
+    inst_launches, two_level = phase_instanced(dyn_db, cam, dev, card, factor_frame)
+    launches.update(inst_launches)
+    timings.update(two_level)
+    del dyn_db
+    log(f"# phases 19-20 took {time.perf_counter() - t_dyn:.1f} s")
+    log(f"# phases 1-20 took {time.perf_counter() - t_start:.1f} s (the run's wall time)")
 
     kernels = []
     for name, where in KERNELS_WHERE.items():

@@ -6,6 +6,10 @@ The library is compiled from the port's own copy of the C++ core
 repository's ignored `build/` directory. There is no numpy fallback builder:
 without a C++ compiler the build raises.
 
+A BLAS keeps its native tree for `refit` (the C++ `blas_refit`); `TLAS`
+builds the instance tree with the C++ `tlas_build`. `refit_nodes_numpy`
+and `tlas_nodes_numpy` are their numpy versions.
+
 Node layout (32 B):
     min[3] f32 | left_or_first u32 | max[3] f32 | count u32
 interior: left child index, right = left + 1, count == 0
@@ -74,6 +78,10 @@ def _load():
     lib.blas_view.argtypes = [ctypes.c_void_p, ctypes.POINTER(_BlasView)]
     lib.blas_destroy.restype = None
     lib.blas_destroy.argtypes = [ctypes.c_void_p]
+    lib.blas_refit.restype = None
+    lib.blas_refit.argtypes = [ctypes.c_void_p, f32p, u32p]
+    lib.tlas_build.restype = ctypes.c_void_p
+    lib.tlas_build.argtypes = [f32p, ctypes.c_uint32, ctypes.c_uint32]
     lib.bvh_thread_links.restype = None
     lib.bvh_thread_links.argtypes = [ctypes.c_void_p, ctypes.c_uint32, i64p, i64p]
     lib.bvh_collapse4.restype = ctypes.c_int64
@@ -138,7 +146,8 @@ class BuildSettings:
 
 
 class BLAS:
-    """Bottom-level acceleration structure over one mesh's triangles."""
+    """Bottom-level acceleration structure over one mesh's triangles. Keeps
+    the native tree for `refit`; the node arrays are copies of it."""
 
     def __init__(self, vertices: np.ndarray, indices: np.ndarray,
                  settings: BuildSettings | None = None):
@@ -146,22 +155,54 @@ class BLAS:
         self.vertices = np.ascontiguousarray(vertices, dtype=np.float32).reshape(-1, 3)
         self.indices = np.ascontiguousarray(indices, dtype=np.uint32).reshape(-1, 3)
         lib = _load()
-        handle = lib.blas_build(
+        self._handle = lib.blas_build(
             _f32p(self.vertices), np.uint32(self.vertices.shape[0]),
             _u32p(self.indices), np.uint32(self.indices.shape[0]),
             np.uint32(self.settings.max_leaf_triangle_count),
             np.float32(self.settings.traversal_cost),
             np.float32(self.settings.presplit_factor),
         )
+        view = self._sync_from_native()
+        self.tri_indices = _copy(view.tri_indices, 4 * view.tri_index_count, np.uint32)
+        self.max_depth = int(view.max_depth)
+        self.sah_cost = float(view.sah_cost)
+        self.build_ms = float(view.build_ms)
+
+    def _sync_from_native(self) -> _BlasView:
+        view = _BlasView()
+        _load().blas_view(self._handle, ctypes.byref(view))
+        self.nodes = _copy(view.nodes, 32 * view.node_count, NODE_DTYPE)
+        return view
+
+    def refit(self, vertices: np.ndarray):
+        """Bottom-up AABB refit after vertex animation (ref: BLAS.cs:276-293),
+        in the C++ core; the topology and `build_ms` stay. `refit_nodes_numpy`
+        is its numpy version."""
+        self.vertices = np.ascontiguousarray(vertices, dtype=np.float32).reshape(-1, 3)
+        _load().blas_refit(self._handle, _f32p(self.vertices), _u32p(self.indices))
+        self._sync_from_native()
+
+    def __del__(self):
+        if _lib is not None and getattr(self, "_handle", None):
+            _lib.blas_destroy(self._handle)
+            self._handle = None
+
+
+class TLAS:
+    """Top-level BVH over instance world AABBs via PLOC (ref: Source/Bvh/TLAS.cs),
+    in the C++ core; `tlas_nodes_numpy` is a median-split tree of the same
+    layout (the JAX package's fallback)."""
+
+    def __init__(self, instance_aabbs: np.ndarray, search_radius: int = 15):
+        """instance_aabbs: (N, 6) [min xyz, max xyz]."""
+        aabbs = np.ascontiguousarray(instance_aabbs, dtype=np.float32).reshape(-1, 6)
+        self.n_instances = aabbs.shape[0]
+        lib = _load()
+        handle = lib.tlas_build(_f32p(aabbs), np.uint32(aabbs.shape[0]), np.uint32(search_radius))
         try:
             view = _BlasView()
             lib.blas_view(handle, ctypes.byref(view))
-            n = view.node_count
-            self.nodes = _copy(view.nodes, 32 * n, NODE_DTYPE)
-            self.tri_indices = _copy(view.tri_indices, 4 * view.tri_index_count, np.uint32)
-            self.max_depth = int(view.max_depth)
-            self.sah_cost = float(view.sah_cost)
-            self.build_ms = float(view.build_ms)
+            self.nodes = _copy(view.nodes, 32 * view.node_count, NODE_DTYPE)
         finally:
             lib.blas_destroy(handle)
 
@@ -172,3 +213,52 @@ def _copy(ptr, nbytes, dtype):
     return np.ctypeslib.as_array(
         ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8)), (nbytes,)
     ).view(dtype).copy()
+
+
+def tlas_nodes_numpy(aabbs: np.ndarray) -> np.ndarray:
+    """Median-split TLAS with the NODE_DTYPE layout (the JAX package's
+    `_tlas_fallback`): a leaf per instance, `left_or_first` its index."""
+    aabbs = np.asarray(aabbs, np.float32).reshape(-1, 6)
+    n = aabbs.shape[0]
+    if n == 0:
+        return np.zeros(1, dtype=NODE_DTYPE)
+    cent = 0.5 * (aabbs[:, :3] + aabbs[:, 3:])
+    nodes: list = [None]
+    work = [(0, np.arange(n, dtype=np.int64))]
+    while work:
+        ni, ids = work.pop()
+        lo = aabbs[ids, :3].min(axis=0)
+        hi = aabbs[ids, 3:].max(axis=0)
+        if len(ids) == 1:
+            nodes[ni] = (lo, int(ids[0]), hi, 1)
+            continue
+        axis = int(np.argmax(hi - lo))
+        ids = ids[np.argsort(cent[ids, axis], kind="stable")]
+        mid = len(ids) // 2
+        left = len(nodes)
+        nodes += [None, None]
+        nodes[ni] = (lo, left, hi, 0)
+        work.append((left + 1, ids[mid:]))
+        work.append((left, ids[:mid]))
+    arr = np.zeros(len(nodes), dtype=NODE_DTYPE)
+    for i, (lo, lof, hi, cnt) in enumerate(nodes):
+        arr[i]["min"], arr[i]["max"] = lo, hi
+        arr[i]["left_or_first"], arr[i]["count"] = lof, cnt
+    return arr
+
+
+def refit_nodes_numpy(nodes, tri_indices, vertices, indices):
+    """BLAS.refit in numpy, in place on `nodes` (children follow their
+    parents, so one sweep from the last node up)."""
+    p = vertices[indices]  # (T,3,3)
+    tmin, tmax = p.min(axis=1), p.max(axis=1)
+    for i in range(nodes.shape[0] - 1, -1, -1):
+        c = int(nodes["count"][i])
+        lof = int(nodes["left_or_first"][i])
+        if c > 0:
+            tids = tri_indices[lof:lof + c]
+            nodes["min"][i] = tmin[tids].min(axis=0)
+            nodes["max"][i] = tmax[tids].max(axis=0)
+        else:
+            nodes["min"][i] = np.minimum(nodes["min"][lof], nodes["min"][lof + 1])
+            nodes["max"][i] = np.maximum(nodes["max"][lof], nodes["max"][lof + 1])

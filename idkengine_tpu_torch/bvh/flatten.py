@@ -30,6 +30,12 @@ class FlatBvh:
     node_count: np.ndarray  # (N,) i32 — 0 for interior
     hit_link: np.ndarray  # (N,) i32 — next node when box hit & interior (DFS child)
     miss_link: np.ndarray  # (N,) i32 — next node when box missed / after leaf (-1 = done)
+    order: np.ndarray | None = None  # DFS order: builder node id per threaded node
+
+    def refresh_boxes(self, nodes: np.ndarray):
+        """Update node AABBs in place after a refit (topology unchanged)."""
+        self.node_min = np.ascontiguousarray(nodes["min"][self.order], np.float32)
+        self.node_max = np.ascontiguousarray(nodes["max"][self.order], np.float32)
 
 
 def thread_bvh(nodes: np.ndarray) -> tuple[FlatBvh, np.ndarray]:
@@ -58,7 +64,7 @@ def thread_bvh(nodes: np.ndarray) -> tuple[FlatBvh, np.ndarray]:
 
     return (
         FlatBvh(node_min=node_min, node_max=node_max, node_first=new_first,
-                node_count=counts, hit_link=hit_link, miss_link=miss_link),
+                node_count=counts, hit_link=hit_link, miss_link=miss_link, order=order),
         slot_perm,
     )
 

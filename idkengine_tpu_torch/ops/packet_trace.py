@@ -13,7 +13,11 @@ the threaded records `SceneArrays.bvh_thread`. With `max_steps`,
 stackless binary walk, as the JAX package's XLA traces do
 (`idkengine_tpu/ops/trace.py:122, 279`): on the card through the capped
 kernels over the same threaded records, launched by `_closest_capped` and
-`_any_capped`, whose counts are their own. The kernels are compiled
+`_any_capped`, whose counts are their own. `trace_closest_two_level` and
+`trace_any_two_level` are the JAX package's two-level traces
+(`idkengine_tpu/ops/trace.py:177, 227`) over these wrappers: one launch
+for the static scene and one an instance, each counted by the wrapper
+that makes it and by the two-level function. The kernels are compiled
 with nvcc on first use into `build/` and bound with ctypes. A CUDA tensor
 reaches the kernel or the call raises; the plain version runs only for
 tensors on the CPU.
@@ -293,8 +297,40 @@ def _any_capped(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
     return occ
 
 
-# launch counts: each wrapper adds one where it launches its kernel
-WRAPPERS = (trace_closest, trace_any, trace_closest_steps, _closest_capped, _any_capped)
+def _trace_launches() -> int:
+    return (trace_closest.launches + trace_any.launches + _closest_capped.launches
+            + _any_capped.launches)
+
+
+def trace_closest_two_level(static_scene: SceneArrays, inst_scenes, inst_inv, inst_boxes,
+                            o, d, t_max, slot_off=None, max_steps: int | None = None):
+    """Two-level closest hit (ops/trace.py:two_level_closest) through
+    trace_closest: the trace kernel, or the capped kernel with max_steps,
+    once for the static scene and once an instance. Returns (Hit, inst_id).
+    Its count is the kernel launches made inside it."""
+    before = _trace_launches()
+    out = _plain.two_level_closest(trace_closest, static_scene, inst_scenes, inst_inv,
+                                   inst_boxes, o, d, t_max, slot_off, max_steps)
+    trace_closest_two_level.launches += _trace_launches() - before
+    return out
+
+
+def trace_any_two_level(static_scene: SceneArrays, inst_scenes, inst_inv, inst_boxes, o, d,
+                        t_max, max_steps: int | None = None) -> torch.Tensor:
+    """Two-level occlusion (ops/trace.py:two_level_any) through trace_any,
+    as trace_closest_two_level; inst_boxes is not used."""
+    del inst_boxes
+    before = _trace_launches()
+    out = _plain.two_level_any(trace_any, static_scene, inst_scenes, inst_inv, o, d, t_max,
+                               max_steps)
+    trace_any_two_level.launches += _trace_launches() - before
+    return out
+
+
+# launch counts: each wrapper adds one where it launches its kernel (the
+# two-level functions the launches made inside them)
+WRAPPERS = (trace_closest, trace_any, trace_closest_steps, _closest_capped, _any_capped,
+            trace_closest_two_level, trace_any_two_level)
 
 
 def reset_launch_counts():

@@ -8,6 +8,11 @@ are the port's CPU trace and the plain versions of the CUDA kernel in
 `ops/packet_trace.py`, which computes the same hits with a per-ray stack;
 with `max_steps` they stop each ray after that many steps, as the JAX
 package's traces do, and are the plain versions of the capped kernels.
+`trace_closest_two_level`/`trace_any_two_level` trace the static scene and
+then each instance of an `InstanceSet` in its own space, as the JAX
+package's two-level traces do; `two_level_closest`/`two_level_any` hold
+that loop for any trace function, so the card's two-level traces in
+`ops/packet_trace.py` are the same loop over the kernels.
 
 Two changes of form, none of result: rays that finished are compacted out
 after every step, and a leaf's triangles are tested as one batch, keeping
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 from ..bvh.flatten import FlatBvh, FlatTriangles, bvh2_nodes, bvh4_nodes, leaf_bits, thread_nodes
-from .intersect import INF, ray_aabb, ray_triangle
+from .intersect import INF, fma, ray_aabb, ray_triangle
 
 DEFAULT_MAX_LEAF = 4  # default for bvh.BuildSettings.max_leaf_triangle_count
 
@@ -235,3 +240,127 @@ def trace_any(scene: SceneArrays, o, d, t_max, max_steps: int | None = None) -> 
 
     ref: BVHIntersect.glsl TraceRayAny."""
     return _traverse(scene, o, d, t_max, True, max_steps=max_steps).slot >= 0
+
+
+@dataclass
+class InstanceSet:
+    """Instanced content for two-level tracing: per-instance local-space
+    scene arrays (shared between the instances of one model), world->local
+    affines, world boxes, slot offsets (so hit slots index one combined
+    attribute table) and normal matrices for shading."""
+
+    scenes: list  # of SceneArrays, one per instance
+    inv: torch.Tensor  # (I,3,4) world->local
+    boxes: torch.Tensor  # (I,2,3) world AABBs
+    slot_off: torch.Tensor  # (I,) int32 slot offset into the combined table
+    normal_mat: torch.Tensor  # (I,3,3) inverse-transpose rotations
+
+
+def instance_set_from_jax(scenes: list, max_leaf: int, inv, boxes, slot_off, normal_mat,
+                          device) -> InstanceSet:
+    """The port's InstanceSet from the JAX package's, given as numpy arrays:
+    `scenes` one dict of SceneArrays fields (JAX_FIELDS) an instance, the
+    same dict object for instances that share a model's arrays (they then
+    share one SceneArrays here too)."""
+    made: dict[int, SceneArrays] = {}
+    for a in scenes:
+        if id(a) not in made:
+            made[id(a)] = from_jax_scene_arrays(a, max_leaf, device)
+
+    def put(x, dtype):
+        return torch.from_numpy(np.array(x, dtype)).to(device)
+
+    return InstanceSet(scenes=[made[id(a)] for a in scenes], inv=put(inv, np.float32),
+                       boxes=put(boxes, np.float32), slot_off=put(slot_off, np.int32),
+                       normal_mat=put(normal_mat, np.float32))
+
+
+def linear_map(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x @ m.T of (R,3) rows and a (3,3) matrix (or (R,3,3), a matrix a
+    row), as XLA:CPU rounds the JAX package's jitted product: each
+    component fma(x2, m[.,2], fma(x1, m[.,1], x0 * m[.,0]))."""
+    if m.dim() == 2:
+        m = m[None]
+    return fma(x[:, 2:3], m[:, :, 2], fma(x[:, 1:2], m[:, :, 1], x[:, 0:1] * m[:, :, 0]))
+
+
+def to_instance(inv: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+    """World rays into an instance's space through its (3,4) world->local
+    affine: (o @ inv[:, :3].T + inv[:, 3], d @ inv[:, :3].T), rounded as
+    the JAX package's two-level traces round them; directions stay
+    unnormalized, so t stays world-space."""
+    m = inv[:, :3]
+    return (linear_map(m, o) + inv[:, 3]).contiguous(), linear_map(m, d).contiguous()
+
+
+def _box_prune(box: torch.Tensor, o, d, best_t) -> torch.Tensor:
+    """The rays that must enter an instance: its world box (2,3) is hit
+    nearer than the best hit so far, by the JAX package's slab test (it
+    divides by the clamped direction), and the ray is alive."""
+    tiny = torch.full_like(d, 1e-20)
+    dn = torch.where(d.abs() < 1e-20, torch.where(d < 0, -tiny, tiny), d)
+    t0 = (box[0] - o) / dn
+    t1 = (box[1] - o) / dn
+    tn = torch.clamp(torch.minimum(t0, t1).amax(dim=-1), min=0.0)
+    tf = torch.maximum(t0, t1).amin(dim=-1)
+    return (tf >= tn) & (tn < best_t) & (best_t > 0)
+
+
+def two_level_closest(closest, static_scene: SceneArrays, inst_scenes, inst_inv, inst_boxes,
+                      o, d, t_max, slot_off=None, max_steps: int | None = None):
+    """The two-level closest-hit loop over a trace function `closest`
+    (scene, o, d, t_max, max_steps=...) -> Hit: the static scene, then each
+    instance whose box the ray must enter, with its t_max the best hit so
+    far (-1, a dead ray, elsewhere). Returns (Hit, inst_id): slot indexes
+    the owning arrays plus the instance's slot offset, inst_id -1 for a
+    static hit or a miss."""
+    r = o.shape[0]
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(r).contiguous()
+    best = closest(static_scene, o, d, t_max, max_steps=max_steps)
+    inst_id = torch.full((r,), -1, dtype=torch.int32, device=o.device)
+    for i, scene_i in enumerate(inst_scenes):
+        lo, ld = to_instance(inst_inv[i], o, d)
+        tm_i = torch.where(_box_prune(inst_boxes[i], o, d, best.t), best.t, -1.0)
+        h = closest(scene_i, lo, ld, tm_i, max_steps=max_steps)
+        closer = h.slot >= 0  # t < tm_i: the kernel's hit test is strict
+        off = 0 if slot_off is None else slot_off[i]
+        best = Hit(t=torch.where(closer, h.t, best.t),
+                   slot=torch.where(closer, h.slot + off, best.slot),
+                   u=torch.where(closer, h.u, best.u), v=torch.where(closer, h.v, best.v))
+        inst_id = torch.where(closer, i, inst_id)
+    return best, inst_id
+
+
+def two_level_any(occluded, static_scene: SceneArrays, inst_scenes, inst_inv, o, d, t_max,
+                  max_steps: int | None = None) -> torch.Tensor:
+    """The two-level occlusion loop over a trace function `occluded`: the
+    static scene, then each instance for the rays not yet occluded (no box
+    prune, as in the JAX package)."""
+    r = o.shape[0]
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(r).contiguous()
+    occ = occluded(static_scene, o, d, t_max, max_steps=max_steps)
+    for i, scene_i in enumerate(inst_scenes):
+        lo, ld = to_instance(inst_inv[i], o, d)
+        occ = occ | occluded(scene_i, lo, ld, torch.where(occ, -1.0, t_max),
+                             max_steps=max_steps)
+    return occ
+
+
+def trace_closest_two_level(static_scene: SceneArrays, inst_scenes, inst_inv, inst_boxes,
+                            o, d, t_max, slot_off=None, max_steps: int | None = None):
+    """Two-level closest-hit trace, plain: merged static BLAS + per-instance
+    BLASes through world->local ray transforms (ref: TLAS.cs traversal
+    entering BLASes through instance inverse transforms). inst_scenes: one
+    SceneArrays an instance (local space); inst_inv (I,3,4); inst_boxes
+    (I,2,3) world AABBs. Returns (Hit, inst_id) as two_level_closest."""
+    return two_level_closest(trace_closest, static_scene, inst_scenes, inst_inv, inst_boxes,
+                             o, d, t_max, slot_off, max_steps)
+
+
+def trace_any_two_level(static_scene: SceneArrays, inst_scenes, inst_inv, inst_boxes, o, d,
+                        t_max, max_steps: int | None = None) -> torch.Tensor:
+    """Occlusion over static + instanced content, plain (inst_boxes is not
+    used: the JAX package prunes nothing here)."""
+    del inst_boxes
+    return two_level_any(trace_any, static_scene, inst_scenes, inst_inv, o, d, t_max,
+                         max_steps)

@@ -35,7 +35,13 @@ JAX package's `_trace_maybe_tiled` does); the image is the untiled one.
 `max_trace_steps` caps every one-phase trace at that many steps of the
 stackless binary walk, as the JAX package's XLA traces take it (the capped
 kernels on the card); the two-phase route takes no cap, as in the JAX
-package. Instances raise NotImplementedError.
+package. With `instances` (an InstanceSet) every trace is two-level
+(ops/packet_trace.py: the static scene, then each instance in its own
+space), as the JAX package routes it: `tile_size` and `use_two_phase` are
+not used, `max_trace_steps` caps each of the traces; the instanced
+models' slots follow the static slots in all three attribute tables
+(`inst_attr_srcs`, their FlatTriangles), and shading turns an instance
+hit's local-space normals and tangent frame by its normal matrix.
 """
 from __future__ import annotations
 
@@ -47,9 +53,10 @@ import torch
 from torch.profiler import record_function
 
 from ..ops.intersect import cross3, fma, ray_sphere
-from ..ops.packet_trace import trace_any, trace_closest
+from ..ops.packet_trace import (trace_any, trace_any_two_level, trace_closest,
+                                trace_closest_two_level)
 from ..ops.two_phase import two_phase_any, two_phase_closest
-from ..ops.trace import Hit, SceneArrays
+from ..ops.trace import Hit, InstanceSet, SceneArrays, linear_map
 from ..scene.materials import ATLAS_MIPS
 from ..scene.scene_db import MeshShading
 from ..utils import rng
@@ -220,6 +227,21 @@ def uv_density(uv3, e1, e2):
     return torch.sqrt((uv_area / torch.clamp(world_area, min=1e-20)).double()).float()
 
 
+def scene_triangles(scene: SceneArrays) -> dict:
+    """The triangle tensors an attribute table is packed from."""
+    return dict(uv=scene.tri_uv, gn=scene.tri_gn, n=scene.tri_n, mat=scene.tri_mat,
+                e1=scene.tri_e1, e2=scene.tri_e2)
+
+
+def flat_triangles(ft, device) -> dict:
+    """scene_triangles of an instanced model's FlatTriangles (numpy)."""
+    def put(x, dtype=np.float32):
+        return torch.as_tensor(np.asarray(x, dtype), device=device)
+
+    return dict(uv=put(ft.uv), gn=put(ft.geom_normal), n=put(ft.n_packed, np.int64),
+                mat=put(ft.mat, np.int32), e1=put(ft.e1), e2=put(ft.e2))
+
+
 def _morton_spread(v):
     # interleave 8 bits with 2-bit gaps
     v = (v | (v << 8)) & 0x0300F00F
@@ -235,14 +257,18 @@ class PathTracer:
 
     def __init__(self, scene: SceneArrays, materials: dict, lights: dict,
                  width: int, height: int, settings: PathTracerSettings | None = None,
-                 env_map=None, instances=None, slot_shading=None, *, device="cuda"):
-        if instances is not None:
-            raise NotImplementedError("PathTracer(instances=...) is not ported")
+                 env_map=None, instances=None, inst_attr_srcs=None, slot_shading=None, *,
+                 device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         if scene.device != self.device:
             raise ValueError(f"scene is on {scene.device}, the tracer on {self.device}")
+        if instances is not None:
+            if not isinstance(instances, InstanceSet):
+                raise TypeError(f"instances must be an InstanceSet, got {type(instances).__name__}")
+            if any(s.device != self.device for s in instances.scenes):
+                raise ValueError(f"the instances' scenes must lie on {self.device}")
 
         self._use_settings(settings or PathTracerSettings())
         self.scene = scene
@@ -278,8 +304,15 @@ class PathTracer:
         self._has_normal_maps = bool(np.any(layers["normal_layer"] >= 0))
         # stochastic re-traces past alpha-discarded surfaces
         self.alpha_rounds = 2
-        self._attr_base, self._attr_surf, self._attr_ext = self._pack_attr(scene, materials,
-                                                                           slot_shading)
+        # instanced models' slots follow the static slots (the slot offsets
+        # of the InstanceSet point there); their frames are local-space
+        tris = [scene_triangles(scene)] + [flat_triangles(src, self.device)
+                                           for src in (inst_attr_srcs or [])]
+        tables = [self._pack_attr(t, materials, slot_shading if i == 0 else None)
+                  for i, t in enumerate(tris)]
+        self._attr_base, self._attr_surf, self._attr_ext = (
+            torch.cat(part) if len(tables) > 1 else part[0] for part in zip(*tables))
+        self.instances = instances
         self._has_mesh_shading = self._shading_differs(slot_shading)
         n_px = height * width
         self.accum = torch.zeros((n_px, 3), device=self.device)
@@ -299,9 +332,9 @@ class PathTracer:
         tables = (self._attr_base, self._attr_surf, self._attr_ext)
         return torch.cat(tables, dim=1)[:, JAX_ORDER]
 
-    def _pack_attr(self, scene: SceneArrays, materials: dict, slot_shading):
+    def _pack_attr(self, tri: dict, materials: dict, slot_shading):
         """The base, surface and extended per-slot tables, made on the device
-        from the scene's triangle tensors (JAX: `_pack_attr_dev`): the tangent frame
+        from triangle tensors (scene_triangles; JAX: `_pack_attr_dev`): the tangent frame
         from the UV derivatives, flat per triangle (the reference
         interpolates authored vertex tangents, Surface.glsl:96-118), with a
         fallback frame where the UVs are degenerate, and the UV density
@@ -317,13 +350,13 @@ class PathTracer:
         n_mat = mat_f.shape[0]
         cutoffs = torch.as_tensor(np.asarray(materials.get("alpha_cutoff", np.full(n_mat, -1.0)),
                                              np.float32), device=dev)
-        mat = scene.tri_mat.long()
-        gn, e1, e2 = scene.tri_gn, scene.tri_e1, scene.tri_e2
+        mat = tri["mat"].long()
+        gn, e1, e2 = tri["gn"], tri["e1"], tri["e2"]
         # rounded as XLA:CPU rounds the JAX package's jitted pack: its
         # two-product differences and cross products fused (fma, cross3),
         # its norms as vector_norm's
         norm = partial(torch.linalg.vector_norm, dim=-1, keepdim=True)
-        uv3 = scene.tri_uv
+        uv3 = tri["uv"]
         du1, du2, det = _uv_derivatives(uv3)
         ok = det.abs() > 1e-12
         rdet = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)[:, None]
@@ -339,7 +372,7 @@ class PathTracer:
                           cross3(gn, fb))
         tan_u, bit_u = compress_normal_t(tan), compress_normal_t(bit)
         uvden = uv_density(uv3, e1, e2)
-        n_u = scene.tri_n
+        n_u = tri["n"]
         shade = (torch.as_tensor(MeshShading.ROW_DEFAULT, device=dev).expand(mat.shape[0], 10)
                  if slot_shading is None
                  else torch.as_tensor(np.asarray(slot_shading, np.float32), device=dev))
@@ -445,10 +478,11 @@ class PathTracer:
         alpha-discarded surfaces; t stays measured from o. A hit kept in an
         earlier round is never re-tested (re-rolling a BLEND keep each round
         would make alpha=a surfaces behave like a^alpha_rounds). Rays that
-        are not re-traced go to the trace dead (t_max = -1)."""
-        hit = closest(self.scene, o, d, t_max)
+        are not re-traced go to the trace dead (t_max = -1). `closest`
+        returns (Hit, instance id or None); so does this, with the hit."""
+        hit, inst = closest(self.scene, o, d, t_max)
         if not self._has_alpha:
-            return state, hit
+            return state, hit, inst
         t_base = torch.zeros_like(t_max)
         o_cur = o
         settled = torch.zeros(t_max.shape, dtype=torch.bool, device=o.device)
@@ -462,9 +496,11 @@ class PathTracer:
                 o_cur = torch.where(redo[..., None], fma(d, adv[..., None], o_cur), o_cur)
                 t_base = torch.where(redo, t_base + adv, t_base)
                 tm_rel = torch.where(redo, t_max - t_base, -1.0)
-                h2 = closest(self.scene, o_cur.contiguous(), d, tm_rel)
+                h2, i2 = closest(self.scene, o_cur.contiguous(), d, tm_rel)
                 hit = Hit(*(torch.where(redo, new, old) for new, old in zip(h2, hit)))
-        return state, hit._replace(t=t_base + hit.t)
+                if inst is not None:
+                    inst = torch.where(redo, i2, inst)
+        return state, hit._replace(t=t_base + hit.t), inst
 
     def _shadow_occluded(self, closest, occluded, state, o, d, t_max):
         """Occlusion with alpha transparency: alpha_rounds closest traces,
@@ -479,7 +515,7 @@ class PathTracer:
         with record_function("pt/shadow alpha rounds"):
             for _ in range(self.alpha_rounds):
                 tm_rel = torch.where(active, t_max - t_base, -1.0)
-                h = closest(self.scene, o_cur.contiguous(), d, tm_rel)
+                h, _ = closest(self.scene, o_cur.contiguous(), d, tm_rel)
                 hitm = active & (h.slot >= 0)
                 state, keep = self._alpha_keep(h, state)
                 occ = occ | (hitm & keep)
@@ -490,6 +526,32 @@ class PathTracer:
         tm_rel = torch.where(active, t_max - t_base, -1.0)
         return state, occ | occluded(self.scene, o_cur.contiguous(), d, tm_rel)
 
+    def _trace_functions(self):
+        """(closest, occluded) of this tracer's settings: closest returns
+        (Hit, instance id or None), occluded a bool per ray."""
+        s = self.settings
+        cap = None if s.max_trace_steps == _NO_MAX_STEPS else s.max_trace_steps
+        iset = self.instances
+        if iset is not None:
+            def closest(scene, o, d, t_max):
+                return trace_closest_two_level(scene, iset.scenes, iset.inv, iset.boxes, o, d,
+                                               t_max, slot_off=iset.slot_off, max_steps=cap)
+
+            def occluded(scene, o, d, t_max):
+                return trace_any_two_level(scene, iset.scenes, iset.inv, iset.boxes, o, d, t_max,
+                                           max_steps=cap)
+            return closest, occluded
+        one, occluded = trace_closest, trace_any
+        if s.use_two_phase:
+            one, occluded = two_phase_closest, two_phase_any
+        elif s.tile_size or cap is not None:
+            one = partial(_trace_closest_tiled, tile=s.tile_size, max_steps=cap)
+            occluded = partial(trace_any, max_steps=cap)
+
+        def closest(scene, o, d, t_max):
+            return one(scene, o, d, t_max), None
+        return closest, occluded
+
     def _render_sample(self, cam_params: dict, frame: int, rate_depth=None):
         s = self.settings
         w, h = self.width, self.height
@@ -498,13 +560,7 @@ class PathTracer:
         lights, mats = self.lights, self.mats
         use_surf = self._has_textures or self._has_normal_maps
         use_ext = use_surf or self._has_mesh_shading
-        closest, occluded_fn = trace_closest, trace_any
-        if s.use_two_phase:
-            closest, occluded_fn = two_phase_closest, two_phase_any
-        elif s.tile_size or s.max_trace_steps != _NO_MAX_STEPS:
-            cap = None if s.max_trace_steps == _NO_MAX_STEPS else s.max_trace_steps
-            closest = partial(_trace_closest_tiled, tile=s.tile_size, max_steps=cap)
-            occluded_fn = partial(trace_any, max_steps=cap)
+        closest, occluded_fn = self._trace_functions()
         env_tables = self._env_tables
 
         pixel_of = torch.arange(r, device=dev)  # ray i belongs to pixel pixel_of[i]
@@ -564,7 +620,7 @@ class PathTracer:
                     alive, inside, last_delta = (flags & 1) != 0, (flags & 2) != 0, (flags & 4) != 0
             rays_traced = rays_traced + alive.sum()
             t_max = torch.where(alive, 3.4e38, -1.0)
-            state, hit = self._closest_alpha(closest, state, o, d, t_max)
+            state, hit, hit_inst = self._closest_alpha(closest, state, o, d, t_max)
 
             # analytic light spheres (ref: BVHIntersect.glsl:189-203 traces
             # lights before the BLAS)
@@ -606,6 +662,13 @@ class PathTracer:
             ns = _normalize(_bary(n_c[:, 0], n_c[:, 1], n_c[:, 2], w_b[..., None],
                                   u_b[..., None], v_b[..., None]))
             gn = af[:, _GN:_GN + 3]
+            if hit_inst is not None:
+                # an instance's attributes are local-space: turn them by its
+                # normal matrix (ref: the TLAS path's normals to world space)
+                nm_i = self.instances.normal_mat[torch.clamp(hit_inst, min=0).long()]
+                rot = (hit_inst >= 0)[..., None]
+                gn = torch.where(rot, _normalize(linear_map(nm_i, gn)), gn)
+                ns = torch.where(rot, _normalize(linear_map(nm_i, ns)), ns)
             # face-forward against the incoming ray
             gn = torch.where(((gn * d).sum(-1) > 0.0)[..., None], -gn, gn)
             ns = torch.where((ns * gn).sum(-1, keepdim=True) < 0.0, -ns, ns)
@@ -629,6 +692,9 @@ class PathTracer:
                     nl = mats["normal_layer"][mat_id]
                     tan = decompress_normal(bits(ax, _TAN_LO, _TAN_HI))[:, 0]
                     bit = decompress_normal(bits(ax, _BIT_LO, _BIT_HI))[:, 0]
+                    if hit_inst is not None:
+                        tan = torch.where(rot, linear_map(nm_i, tan), tan)
+                        bit = torch.where(rot, linear_map(nm_i, bit), bit)
                     tan = _normalize(tan - ns * (tan * ns).sum(-1, keepdim=True))
                     bit = _normalize(bit - ns * (bit * ns).sum(-1, keepdim=True))
                     ntan = sample_atlas(mats["atlas"], nl, uv, lod)[:, :3] * 2.0 - 1.0

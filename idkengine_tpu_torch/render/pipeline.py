@@ -383,7 +383,7 @@ def _refuse_pt_settings(s: PtPipelineSettings):
 
 class PathTracerPipeline:
     """PT accumulation + denoise + post (ref: PathTracerPipeline.cs) over a
-    built SceneDatabase."""
+    built SceneDatabase, its instances traced two-level."""
 
     def __init__(self, scene_db, width: int, height: int,
                  pt_settings: PathTracerSettings | None = None,
@@ -396,8 +396,9 @@ class PathTracerPipeline:
         self.db = scene_db
         self.pt = PathTracer(scene_db.device_scene, scene_db.materials.soa(),
                              scene_db.lights.soa(), width, height, pt_settings,
-                             env_map=env_map, slot_shading=scene_db.slot_shading(),
-                             device=device)
+                             env_map=env_map, instances=scene_db.instance_set(),
+                             inst_attr_srcs=scene_db._inst_attr_srcs,
+                             slot_shading=scene_db.slot_shading(), device=device)
         self.width, self.height = width, height
         self._rate_depth = None
 

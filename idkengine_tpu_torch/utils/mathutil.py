@@ -2,7 +2,8 @@
 
 Carried over as numpy code: the subset the ported slices use (vector
 normalisation, the camera's view and reverse-Z projection matrices, TRS
-compose/decompose for model nodes, the Halton sequence of the TAA jitter).
+compose/decompose for model nodes, quaternion slerp for animation, the
+Halton sequence of the TAA jitter).
 """
 from __future__ import annotations
 
@@ -95,6 +96,28 @@ def quat_to_matrix(q: np.ndarray) -> np.ndarray:
     m[..., 2, 1] = yz + wx
     m[..., 2, 2] = 1 - (xx + yy)
     return m.astype(np.float32)
+
+
+def quat_slerp(q0: np.ndarray, q1: np.ndarray, t) -> np.ndarray:
+    """Spherical lerp between xyzw quaternions; t broadcastable.
+
+    Keyframe rotation interpolation (ref: ModelManager.cs:560-574)."""
+    q0 = np.asarray(q0, np.float64)
+    q1 = np.asarray(q1, np.float64)
+    t = np.asarray(t, np.float64)[..., None]
+    d = np.sum(q0 * q1, axis=-1, keepdims=True)
+    q1 = np.where(d < 0, -q1, q1)
+    d = np.abs(d)
+    # fall back to nlerp when nearly parallel
+    theta = np.arccos(np.clip(d, -1.0, 1.0))
+    sin_theta = np.sin(theta)
+    safe = sin_theta > 1e-6
+    w0 = np.where(safe, np.sin((1 - t) * theta) / np.where(safe, sin_theta, 1.0), 1 - t)
+    w1 = np.where(safe, np.sin(t * theta) / np.where(safe, sin_theta, 1.0), t)
+    out = w0 * q0 + w1 * q1
+    return (out / np.maximum(np.linalg.norm(out, axis=-1, keepdims=True), 1e-20)).astype(
+        np.float32
+    )
 
 
 def trs_matrix(translation, rotation_q, scale) -> np.ndarray:

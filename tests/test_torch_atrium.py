@@ -1,7 +1,8 @@
 """The slice's own configuration, cut to CPU size: a small atrium at depth 2
 with the bench's build settings, lights and camera, rays sorted between
 bounces. The port's image against the JAX package's (RMSE <= 1e-3, equal
-ray counts); sorting on against sorting off; instances, still refused."""
+ray counts); sorting on against sorting off; instances of another type than
+InstanceSet refused."""
 import numpy as np
 import pytest
 
@@ -77,7 +78,9 @@ def test_sorting_leaves_the_image_unchanged(port_db):
 
 @pytest.mark.parametrize("what", ["instances"])
 def test_features_outside_the_slice_raise(port_db, what):
+    """Instances are in the port since the dynamics slice: the tracer takes
+    an InstanceSet (tests/test_torch_instancing.py) and refuses anything else."""
     db, scene = port_db
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         PathTracer(scene, db.materials.soa(), db.lights.soa(), W, H, device="cpu",
                    instances=object())

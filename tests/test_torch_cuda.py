@@ -981,3 +981,115 @@ def test_capped_and_tiled_pathtracer_on_card_matches_cpu(dev):
             assert kern._closest_capped.launches == 8  # four tiles a bounce
             assert kern._any_capped.launches > 0 and kern.trace_closest.launches == 0
     assert float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2))) <= 1e-3
+
+
+def test_device_refit_on_card_matches_cpu(dev):
+    """The refit (render/dynamic.py) of one build of the scenes fixture's
+    atrium under a seeded displacement, on the card and on the CPU: every
+    box and record word, tri_vec and the triangles bit for bit; the trace
+    kernel on the refitted records against the plain trace. (One build
+    for both: a threaded build may lay the slots out in another order.)"""
+    from dataclasses import fields, replace
+
+    from idkengine_tpu_torch.render.dynamic import DeviceRefitter, build_refit_plan
+
+    db = SceneDatabase(BuildSettings(**BUILD))
+    db.add_model(atrium(20_000))
+    cpu = db.build("cpu")
+    card = replace(cpu, **{f.name: getattr(cpu, f.name).to(dev) for f in fields(cpu)
+                           if isinstance(getattr(cpu, f.name), torch.Tensor)})
+    rng = np.random.default_rng(3)
+    verts = db._verts + rng.normal(0, 0.05, db._verts.shape).astype(np.float32)
+    plan = build_refit_plan(db._flat, db._slot_tri, db._indices, cpu.max_leaf)
+    got, want = (DeviceRefitter(plan, sc).refit(sc, torch.from_numpy(verts).to(sc.device),
+                                                torch.from_numpy(db._normals).to(sc.device))
+                 for sc in (card, cpu))
+    for k in ("node_min", "node_max", "bvh_nodes", "bvh_thread", "bvh4_nodes", "tri_vec",
+              "tri_p0", "tri_e1", "tri_e2"):
+        assert torch.equal(getattr(got, k).cpu(), getattr(want, k)), k
+    o, d = _rays(got, 1 << 16, 5, dev)
+    t_max = torch.full((o.shape[0],), 3.4e38, device=dev)
+    hit, ref = kern.trace_closest(got, o, d, t_max), plain.trace_closest(got, o, d, t_max)
+    same = hit.slot == ref.slot
+    assert torch.equal(hit.slot >= 0, ref.slot >= 0) and same.float().mean() >= SLOT_AGREE
+    for k in ("t", "u", "v"):
+        assert torch.equal(getattr(hit, k)[same], getattr(ref, k)[same]), k
+    assert torch.equal(kern.trace_any(got, o, d, 5.0), plain.trace_any(got, o, d, 5.0))
+
+
+def _instanced_db(device):
+    """tests/test_instancing.py's scene: the Cornell box and two instances
+    of a sphere with a BLAS of its own."""
+    from idkengine_tpu_torch.scene.model import Material, MeshPrimitive, Model, Node
+    from idkengine_tpu_torch.scene.procedural import cornell_box, make_uv_sphere
+
+    pos, idx = make_uv_sphere([0.0, 0.0, 0.0], 50.0, n_lat=12, n_lon=16)
+    prim = MeshPrimitive(positions=pos.astype(np.float32), indices=idx.astype(np.uint32))
+    prim.ensure_normals()
+    sphere = Model(primitives=[prim], nodes=[Node(mesh_primitives=[0])], root_nodes=[0],
+                   materials=[Material(base_color=np.array([0.9, 0.2, 0.2, 1], np.float32))])
+    mats = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    mats[1, :3, :3] *= 1.5
+    mats[:, :3, 3] = [[150, 380, 250], [400, 380, 250]]
+    db = SceneDatabase(BuildSettings(max_leaf_triangle_count=12, traversal_cost=4.0))
+    db.add_model(cornell_box(emissive_quad=False))
+    db.add_instanced_model(sphere, mats)
+    db.build(device)
+    db.lights.add([278, 480, 279.5], [6, 6, 6], radius=45.0)
+    return db
+
+
+def _instanced_cam():
+    return Camera(position=np.array([278, 273, -800], np.float32), yaw=90.0, fov_y=38.0)
+
+
+@pytest.mark.parametrize("max_steps", [None, 64])
+def test_two_level_on_card_matches_plain(dev, max_steps):
+    """The two-level traces through the kernels (1 + I launches a call)
+    against the plain two-level traces on the same card tensors: occlusion
+    equal on every ray; closest hits, through the capped kernel (which
+    walks the plain order), t, slot, u, v and the instance id equal on
+    every ray, and through the trace kernel as test_closest_kernel_matches_plain
+    holds it (slot and instance equal on SLOT_AGREE of the rays, t, u, v
+    bit-equal there, the same hit mask)."""
+    from idkengine_tpu_torch.render.camera import generate_rays
+
+    db = _instanced_db(dev)
+    iset = db.instance_set()
+    o, d = generate_rays(_instanced_cam().ray_params(128, 128), 128, 128,
+                         torch.zeros(2, device=dev))
+    o, d = o.contiguous(), d.contiguous()
+    t_max = torch.where(torch.arange(o.shape[0], device=dev) % 9 == 0, -1.0, 3.4e38)
+    args = (db.device_scene, iset.scenes, iset.inv, iset.boxes, o, d, t_max)
+    kern.reset_launch_counts()
+    hit, inst = kern.trace_closest_two_level(*args, slot_off=iset.slot_off, max_steps=max_steps)
+    occ = kern.trace_any_two_level(*args, max_steps=max_steps)
+    torch.cuda.synchronize()
+    assert kern.trace_closest_two_level.launches == kern.trace_any_two_level.launches == 3
+    want, want_inst = plain.trace_closest_two_level(*args, slot_off=iset.slot_off,
+                                                    max_steps=max_steps)
+    same = (hit.slot == want.slot) & (inst == want_inst)
+    for k in ("t", "u", "v"):
+        assert torch.equal(getattr(hit, k)[same], getattr(want, k)[same]), k
+    assert torch.equal(hit.slot >= 0, want.slot >= 0) and (inst >= 0).any()
+    assert bool(same.all()) if max_steps is not None else same.float().mean() >= SLOT_AGREE
+    assert torch.equal(occ, plain.trace_any_two_level(*args, max_steps=max_steps))
+
+
+def test_instanced_pathtracer_on_card_matches_cpu(dev):
+    """PathTracer(instances=...) at 48x48 on the card against the CPU
+    (RMSE <= 1e-3); the card's frame launches the two-level traces."""
+    imgs = []
+    for device in (dev, "cpu"):
+        db = _instanced_db(device)
+        pt = PathTracer(db.device_scene, db.materials.soa(), db.lights.soa(), 48, 48,
+                        PathTracerSettings(ray_depth=2, sky_strength=0.0),
+                        instances=db.instance_set(), inst_attr_srcs=db._inst_attr_srcs,
+                        device=device)
+        kern.reset_launch_counts()
+        imgs.append(pt.render_frame(_instanced_cam()).cpu().numpy())
+        if device == dev:
+            assert kern.trace_closest_two_level.launches == 2 * 3
+            assert kern.trace_any_two_level.launches == 2 * 3
+    assert np.isfinite(imgs[0]).all() and imgs[0].std() > 0
+    assert float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2))) <= 1e-3

@@ -38,6 +38,8 @@ def test_import_leaves_jax_out():
             "import idkengine_tpu_torch.render.shadowmap, idkengine_tpu_torch.render.volumetric\n"
             "import idkengine_tpu_torch.render.oit, idkengine_tpu_torch.render.ssr\n"
             "import idkengine_tpu_torch.render.upscale, idkengine_tpu_torch.render.adaptive\n"
+            "import idkengine_tpu_torch.render.dynamic, idkengine_tpu_torch.scene.animation\n"
+            "import idkengine_tpu_torch.scene.skinning\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'idkengine_tpu')]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": REPO}
