@@ -125,7 +125,30 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      of view (its id leaves the primaries, no BLAS is rebuilt, the TLAS
      is); a small instanced scene (the Cornell box and two spheres, 48x48)
      on the card against the CPU;
- 21. print the kernels' JSON line, then the result line.
+ 21. the app: the textured, animated atrium of phases 14 and 19 (2.8M
+     triangles, its six textures as zlib-supercompressed RGBA8 KTX2) written
+     as a .glb by write_glb; load_gltf(optimize=False) must give back the
+     model bit for bit; load_gltf with deferred textures and the meshopt
+     pass, SceneDatabase.build, phase 14's overrides (seconds of each);
+     Engine at 1920x1080 with phase 14's tracer settings and env map: frames
+     while AsyncTextureLoader's decodes land in the tracer's atlas, then one
+     sample held against phase 14's first frame (RMSE <= SMALL_RMSE; the
+     meshopt order builds another tree), the trace calls of one Engine frame
+     against the plain trace (phase 4's rule), run_headless timed with the
+     counts reset just before, one frame profiled; Engine.update to
+     DYN_TIMES through update_device (each call's ms); the camera pushed
+     into the floor and into a wall with camera_collision (it must end at
+     least its radius from the surface, by intersect_ray); a physics light
+     dropped; set_mode(RASTERIZER): the deferred frame with VXGI 256^3
+     timed, its trace calls and scatter-max call against their plain
+     versions, one frame profiled; add_model_runtime of phase 20's sphere
+     and a frame through the two-level traces (1 + 1 launches a call, the
+     primaries against the plain two-level trace); pick_entity at five
+     pixels against the card's primary hits; three recorded frames through
+     save / load / replay; save_config / load_config; then a small Engine
+     (an 8000-triangle atrium as glTF, 48x32) on the card against the CPU in
+     both modes;
+ 22. print the kernels' JSON line, then the result line.
 
 The script prints its wall time before the kernels' line. It imports
 nothing of JAX. Without a CUDA card it exits nonzero before printing any
@@ -708,13 +731,13 @@ def _calling_pass():
     return "?" if f is None else PASS_OF_CALLER[f.f_code.co_name]
 
 
-def record_deferred_traces(pipe, cam):
+def record_deferred_traces(pipe, cam, render=None):
     """The trace calls (pass, kind, scene, o, d, t_max) of one deferred
     frame, in the order the frame makes them (phase 7's: the voxelizer's
     shadow rays, the G-buffer's primaries, the lighting's shadow rays
     toward the lights; the optional passes' between them), each with the
     pass that made it; recorded by standing in for the pipeline's trace
-    functions."""
+    functions. `render` (default pipe.render_frame(cam)) makes the frame."""
     from idkengine_tpu_torch.render import pipeline as pipeline_mod
 
     calls = []
@@ -731,7 +754,7 @@ def record_deferred_traces(pipe, cam):
     pipeline_mod.trace_closest, pipeline_mod.trace_any = (recording("trace_closest"),
                                                           recording("trace_any"))
     try:
-        pipe.render_frame(cam)
+        render() if render is not None else pipe.render_frame(cam)
     finally:
         pipeline_mod.trace_closest, pipeline_mod.trace_any = saved
     return calls
@@ -1414,10 +1437,11 @@ def textured_settings():
                               sky_strength=1.0, use_env_map=True, env_nee=True)
 
 
-def record_pt_traces(pt, cam):
+def record_pt_traces(pt, cam, render=None):
     """The trace calls (kind, label, o, d, t_max) of one frame of `pt`, in
     the order the tracer makes them, recorded by standing in for the
-    tracer's trace functions."""
+    tracer's trace functions. `render` (default pt.render_frame(cam)) makes
+    the frame."""
     from idkengine_tpu_torch.render import pathtracer as pathtracer_mod
 
     calls = []
@@ -1434,7 +1458,7 @@ def record_pt_traces(pt, cam):
     pathtracer_mod.trace_closest, pathtracer_mod.trace_any = (recording("trace_closest"),
                                                               recording("trace_any"))
     try:
-        pt.render_frame(cam)
+        render() if render is not None else pt.render_frame(cam)
     finally:
         pathtracer_mod.trace_closest, pathtracer_mod.trace_any = saved
     if len(calls) != DEPTH * len(TEXTURED_CALLS):
@@ -1447,7 +1471,9 @@ def record_pt_traces(pt, cam):
 def phase_textured(dev, card, seed, factor_frame, timings):
     """Phase 14: the textured frame (see the module's docstring). Returns
     the launch counts of its timed path-traced frames and of its deferred
-    frame, and the textured scene's database (phase 17 renders it)."""
+    frame, the textured scene's database (phase 17 renders it) and the
+    accumulated radiance of its first frame (one sample, phase 21's
+    reference)."""
     import numpy as np
     import torch
 
@@ -1477,6 +1503,7 @@ def phase_textured(dev, card, seed, factor_frame, timings):
     t3 = time.perf_counter()
     pt.render_frame(cam)  # warm-up
     torch_sync(dev)
+    first_frame = pt.image().clone()  # sample 0 alone: phase 21 holds the Engine's frame to it
     log(f"# textured tracer init (attribute pack, alias table) {t3 - t2:.2f} s, warm-up frame "
         f"{time.perf_counter() - t3:.2f} s")
 
@@ -1596,7 +1623,7 @@ def phase_textured(dev, card, seed, factor_frame, timings):
     if not rmse <= SMALL_RMSE:
         raise AssertionError("the card's textured render disagrees with the CPU render")
     log(f"# phase 14 (textured frame) took {time.perf_counter() - t_start:.1f} s")
-    return launches, db
+    return launches, db, first_frame
 
 
 def capped_caps(p99):
@@ -1920,25 +1947,32 @@ def instance_matrices(seed, count=INSTANCE_COUNT):
     return mats
 
 
-def dynamic_scene(dev, seed, tris=TRIS):
-    """Phases 19-20's database: phase 3's atrium unhoisted with its root
-    node animated, and INSTANCE_COUNT instances of the sphere; phase 3's
-    lights. Returns (db, build seconds)."""
+def sway_animation():
+    """Phase 19's animation of the root node: LINEAR keyframes at 0, 1 and
+    2 s, at rest at 0 and 2 s, DYN_SHIFT and a turn of DYN_TURN degrees
+    about y at 1 s."""
     import numpy as np
 
-    from idkengine_tpu_torch.bvh.builder import BuildSettings
     from idkengine_tpu_torch.scene.model import Animation, AnimationChannel, AnimationSampler
-    from idkengine_tpu_torch.scene.procedural import atrium
-    from idkengine_tpu_torch.scene.scene_db import SceneDatabase
 
-    model = atrium(tris)
     times = np.float32([0.0, 1.0, 2.0])
     half = np.radians(DYN_TURN) / 2
     shift = np.float32([[0, 0, 0], DYN_SHIFT, [0, 0, 0]])
     turn = np.float32([[0, 0, 0, 1], [0, np.sin(half), 0, np.cos(half)], [0, 0, 0, 1]])
-    model.animations.append(Animation("sway", [
-        AnimationChannel(0, "translation", AnimationSampler(times, shift)),
-        AnimationChannel(0, "rotation", AnimationSampler(times, turn))]))
+    return Animation("sway", [AnimationChannel(0, "translation", AnimationSampler(times, shift)),
+                              AnimationChannel(0, "rotation", AnimationSampler(times, turn))])
+
+
+def dynamic_scene(dev, seed, tris=TRIS):
+    """Phases 19-20's database: phase 3's atrium unhoisted with its root
+    node animated, and INSTANCE_COUNT instances of the sphere; phase 3's
+    lights. Returns (db, build seconds)."""
+    from idkengine_tpu_torch.bvh.builder import BuildSettings
+    from idkengine_tpu_torch.scene.procedural import atrium
+    from idkengine_tpu_torch.scene.scene_db import SceneDatabase
+
+    model = atrium(tris)
+    model.animations.append(sway_animation())
     t0 = time.perf_counter()
     db = SceneDatabase(BuildSettings(**BUILD))
     db.add_model(model, hoist=False)
@@ -2341,6 +2375,601 @@ def phase_instanced(db, cam, dev, card, frame_ref):
     return launches, timings
 
 
+def write_glb(model, path):
+    """Write `model` as a binary glTF (.glb): one mesh a node that holds
+    primitives (positions, normals, UVs, uint32 indices), the nodes' TRS
+    and children, the materials' factors, alpha modes and cutoffs (with
+    KHR_materials_ior and _transmission where they differ from glTF's
+    defaults), each texture as a KTX2 image (image/ktx2, RGBA8, sRGB where
+    the texture is, zlib-supercompressed: scheme 3) and the animations'
+    samplers. The JAX package has no writer; this one serves the checks of
+    the port's loader (phase 21, tests/test_torch_cuda.py). Returns the
+    file's size in bytes."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    body, views, accessors = bytearray(), [], []
+
+    def view(raw):
+        body.extend(bytes(-len(body) % 4))
+        views.append({"buffer": 0, "byteOffset": len(body), "byteLength": len(raw)})
+        body.extend(raw)
+        return len(views) - 1
+
+    def accessor(arr, ctype, kind, bounds=False):
+        arr = np.ascontiguousarray(arr)
+        a = {"bufferView": view(arr.tobytes()), "componentType": ctype, "type": kind,
+             "count": int(arr.shape[0])}
+        if bounds:
+            a["min"], a["max"] = arr.min(0).tolist(), arr.max(0).tolist()
+        accessors.append(a)
+        return len(accessors) - 1
+
+    images = []
+    for tex in model.textures:
+        img = np.ascontiguousarray(tex.data, np.uint8)
+        h, w = img.shape[:2]
+        if img.shape[2] != 4:
+            raise ValueError("the writer takes RGBA8 textures")
+        raw = img.tobytes()
+        payload = zlib.compress(raw)
+        head = (b"\xabKTX 20\xbb\r\n\x1a\n"
+                + struct.pack("<9I", 43 if tex.is_srgb else 37, 1, w, h, 0, 0, 1, 1, 3)
+                + struct.pack("<IIIIQQ", 0, 0, 0, 0, 0, 0))
+        ktx = head + struct.pack("<QQQ", len(head) + 24, len(payload), len(raw)) + payload
+        images.append({"bufferView": view(ktx), "mimeType": "image/ktx2"})
+    materials = []
+    for m in model.materials:
+        if np.any(np.asarray(m.absorbance) != 0):
+            raise ValueError("the writer does not write KHR_materials_volume")
+        pbr = {"baseColorFactor": np.asarray(m.base_color, np.float32).tolist(),
+               "metallicFactor": float(m.metallic), "roughnessFactor": float(m.roughness)}
+        g = {"name": m.name, "pbrMetallicRoughness": pbr,
+             "emissiveFactor": np.asarray(m.emissive, np.float32).tolist()}
+        for key, ti in (("baseColorTexture", m.base_color_texture),
+                        ("metallicRoughnessTexture", m.metallic_roughness_texture)):
+            if ti >= 0:
+                pbr[key] = {"index": ti}
+        for key, ti in (("normalTexture", m.normal_texture), ("emissiveTexture",
+                                                               m.emissive_texture),
+                        ("occlusionTexture", m.occlusion_texture)):
+            if ti >= 0:
+                g[key] = {"index": ti}
+        if m.alpha_cutoff < 0:
+            g["alphaMode"] = "OPAQUE"
+        elif m.alpha_cutoff == 0:
+            g["alphaMode"] = "BLEND"
+        else:
+            g["alphaMode"], g["alphaCutoff"] = "MASK", float(m.alpha_cutoff)
+        if m.double_sided:
+            g["doubleSided"] = True
+        ext = {}
+        if m.ior != 1.5:
+            ext["KHR_materials_ior"] = {"ior": float(m.ior)}
+        if m.transmission:
+            ext["KHR_materials_transmission"] = {"transmissionFactor": float(m.transmission)}
+        if ext:
+            g["extensions"] = ext
+        materials.append(g)
+    meshes, nodes = [], []
+    for node in model.nodes:
+        n = {"name": node.name, "translation": np.asarray(node.translation).tolist(),
+             "rotation": np.asarray(node.rotation).tolist(),
+             "scale": np.asarray(node.scale).tolist()}
+        if node.children:
+            n["children"] = list(node.children)
+        if node.mesh_primitives:
+            prims = []
+            for pi in node.mesh_primitives:
+                p = model.primitives[pi]
+                attrs = {"POSITION": accessor(p.positions.astype(np.float32), 5126, "VEC3", True)}
+                if p.normals is not None:
+                    attrs["NORMAL"] = accessor(p.normals.astype(np.float32), 5126, "VEC3")
+                if p.uvs is not None:
+                    attrs["TEXCOORD_0"] = accessor(p.uvs.astype(np.float32), 5126, "VEC2")
+                prims.append({"attributes": attrs, "material": int(p.material),
+                              "indices": accessor(p.indices.astype(np.uint32).reshape(-1),
+                                                  5125, "SCALAR")})
+            n["mesh"] = len(meshes)
+            meshes.append({"primitives": prims})
+        nodes.append(n)
+    animations = []
+    for anim in model.animations:
+        samplers, channels = [], []
+        for ch in anim.channels:
+            sm = ch.sampler
+            samplers.append({"input": accessor(sm.times.astype(np.float32), 5126, "SCALAR"),
+                             "output": accessor(sm.values.astype(np.float32), 5126,
+                                                {3: "VEC3", 4: "VEC4"}[sm.values.shape[1]]),
+                             "interpolation": sm.interpolation})
+            channels.append({"sampler": len(samplers) - 1,
+                             "target": {"node": ch.node, "path": ch.path}})
+        animations.append({"name": anim.name, "samplers": samplers, "channels": channels})
+    doc = {"asset": {"version": "2.0", "generator": "chip_smoke.write_glb"},
+           "scene": 0, "scenes": [{"nodes": list(model.root_nodes)}], "nodes": nodes,
+           "meshes": meshes, "materials": materials,
+           "textures": [{"source": i} for i in range(len(images))], "images": images,
+           "accessors": accessors, "bufferViews": views, "animations": animations,
+           "buffers": [{"byteLength": len(body)}]}
+    js = json.dumps(doc, separators=(",", ":")).encode()
+    js += b" " * (-len(js) % 4)
+    body.extend(bytes(-len(body) % 4))
+    total = 12 + 8 + len(js) + 8 + len(body)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, total))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A))
+        f.write(js)
+        f.write(struct.pack("<II", len(body), 0x004E4942))
+        f.write(body)
+    return total
+
+
+def check_gltf_round_trip(model, loaded):
+    """Raises unless the loaded model holds every array, material field and
+    texture pixel of `model` bit for bit (texture names aside: the loader
+    names a texture by its image)."""
+    import dataclasses
+
+    import numpy as np
+
+    def same(a, b, where):
+        if dataclasses.is_dataclass(a):
+            for f in dataclasses.fields(a):
+                if not (where.startswith("textures") and f.name == "name"):
+                    same(getattr(a, f.name), getattr(b, f.name), f"{where}.{f.name}")
+        elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+            if not (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                    and a.dtype == b.dtype and a.shape == b.shape
+                    and a.tobytes() == b.tobytes()):
+                raise AssertionError(f"the loaded glTF differs from the model at {where}")
+        elif isinstance(a, (list, tuple)):
+            if len(a) != len(b):
+                raise AssertionError(f"the loaded glTF differs from the model at {where}")
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{where}[{i}]")
+        elif not (type(a) is type(b) and a == b):
+            raise AssertionError(f"the loaded glTF differs from the model at {where}: "
+                                 f"{a!r} against {b!r}")
+
+    for k in ("primitives", "materials", "textures", "nodes", "root_nodes", "animations",
+              "skins"):
+        same(getattr(model, k), getattr(loaded, k), k)
+
+
+def app_model(seed, tris):
+    """Phase 21's asset: the atrium with texture_atrium's material model and
+    phase 19's animation of its root node. Returns (model, per-mesh
+    overrides)."""
+    from idkengine_tpu_torch.scene.procedural import atrium, texture_atrium
+
+    model = atrium(tris)
+    shading = texture_atrium(model, seed)
+    model.animations.append(sway_animation())
+    return model, shading
+
+
+def engine_settings(width, height, vxgi_res):
+    """EngineSettings of phase 21: phase 14's tracer settings, phase 7's
+    deferred settings with VXGI at `vxgi_res`."""
+    from idkengine_tpu_torch.engine import EngineSettings
+
+    return EngineSettings(width=width, height=height, pt=textured_settings(),
+                          deferred=_deferred_settings(vxgi_res))
+
+
+def load_app_db(path, dev, shading, defer):
+    """The database the Engine runs: the glTF loaded (textures decoded, or
+    deferred), the meshopt pass, SceneDatabase.build on `dev`, phase 3's
+    lights and phase 14's per-mesh overrides. Returns (db, model, the
+    seconds of the parse, the meshopt pass and the build)."""
+    from idkengine_tpu_torch.bvh.builder import BuildSettings
+    from idkengine_tpu_torch.scene.gltf import load_gltf
+    from idkengine_tpu_torch.scene.meshopt import optimize_model
+    from idkengine_tpu_torch.scene.scene_db import SceneDatabase
+
+    t0 = time.perf_counter()
+    model = load_gltf(path, defer_textures=defer, optimize=False)
+    t1 = time.perf_counter()
+    optimize_model(model)  # load_gltf(optimize=True)'s last step, timed apart
+    t2 = time.perf_counter()
+    db = SceneDatabase(BuildSettings(**BUILD))
+    db.add_model(model)
+    db.build(dev)
+    torch_sync(dev)
+    for pos, rad, r in LIGHTS:
+        db.lights.add(pos, rad, radius=r)
+    for k, kw in shading.items():
+        db.set_mesh_shading(k, **kw)
+    return db, model, (t1 - t0, t2 - t1, time.perf_counter() - t2)
+
+
+def record_scatter_calls(render):
+    """The scatter-max calls (cell, vals, n_cells, bf16) of one frame,
+    recorded by standing in for the voxelizer's voxel_scatter module."""
+    from types import SimpleNamespace
+
+    from idkengine_tpu_torch.render import vxgi as vxgi_mod
+
+    calls, module = [], vxgi_mod.voxel_scatter
+
+    def recording(cell, vals, n_cells, bf16=False):
+        calls.append((cell, vals, n_cells, bf16))
+        return module.scatter_max_dense(cell, vals, n_cells, bf16=bf16)
+
+    vxgi_mod.voxel_scatter = SimpleNamespace(scatter_max_dense=recording)
+    try:
+        render()
+    finally:
+        vxgi_mod.voxel_scatter = module
+    return calls
+
+
+def pick_ray(cam, width, height, px, py):
+    """Engine.pick_entity's ray through pixel (px, py), as it makes it."""
+    import numpy as np
+
+    params = cam.ray_params(width, height)
+    u = (px + 0.5) / width * 2 - 1
+    v = 1 - (py + 0.5) / height * 2
+    d = params["forward"] + u * params["right"] + v * params["up"]
+    return np.asarray(cam.position, np.float32), (d / np.linalg.norm(d)).astype(np.float32)
+
+
+def settle(eng, move, updates, rest):
+    """Push the camera with `move` for `updates` Engine updates of 1/60 s,
+    then let it come to rest for `rest` more; returns each update's ms."""
+    import numpy as np
+
+    ms = []
+    for i in range(updates + rest):
+        t0 = time.perf_counter()
+        eng.update(1.0 / 60.0, move=np.float32(move) if i < updates else np.zeros(3, np.float32))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def phase_app(dev, card, seed, ref_frame, timings):
+    """Phase 21 (see the module's docstring). Returns the launch counts of
+    the Engine's path-traced, deferred and instanced frames."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from idkengine_tpu_torch import profiling
+    from idkengine_tpu_torch.engine import Engine, RenderMode, load_config, save_config
+    from idkengine_tpu_torch.ops import packet_trace as kern
+    from idkengine_tpu_torch.ops import voxel_scatter as vs
+    from idkengine_tpu_torch.render import Camera
+    from idkengine_tpu_torch.render import pathtracer as pathtracer_mod
+    from idkengine_tpu_torch.scene.async_io import (AsyncTextureLoader, MainThreadQueue,
+                                                    attach_async_textures)
+    from idkengine_tpu_torch.scene.gltf import load_gltf
+
+    t_start = time.perf_counter()
+    launches = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_app_")
+    path = os.path.join(tmp.name, "atrium.glb")
+    model, shading = app_model(seed, TRIS)
+    t0 = time.perf_counter()
+    size = write_glb(model, path)
+    log(f"# phase 21: wrote the textured, animated atrium ({model.triangle_count()} tris, "
+        f"{len(model.primitives)} primitives, {len(model.textures)} KTX2 textures) as "
+        f"{size / 1e6:.1f} MB of glb in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    check_gltf_round_trip(model, load_gltf(path, optimize=False))
+    log(f"# load_gltf(optimize=False) gives back every array, material field and texture pixel "
+        f"bit for bit ({time.perf_counter() - t0:.2f} s with the check)")
+    del model
+
+    db, lazy, (parse_s, meshopt_s, build_s) = load_app_db(path, dev, shading, defer=True)
+    env_path = os.path.join(tmp.name, "sky.hdr")
+    env = textured_env(dev, *ENV_SIZE, env_path)  # phase 14's map, through RGBE
+    cam = Camera(position=np.array(CAMERA["position"], np.float32), yaw=CAMERA["yaw"],
+                 fov_y=CAMERA["fov_y"])
+    eng = Engine(db, engine_settings(WIDTH, HEIGHT, VXGI_RES), env_map=env, device=dev)
+    eng.camera = cam
+    t0 = time.perf_counter()
+    pipe = eng._pipeline()
+    torch_sync(dev)
+    init_s = time.perf_counter() - t0
+    loader = AsyncTextureLoader(MainThreadQueue())
+    t0 = time.perf_counter()
+    attach_async_textures(db, lazy, loader, mat_offset=0, pt=pipe.pt)
+    during = 0
+    while loader.outstanding:
+        loader.queue.pump()
+        eng.render()
+        during += 1
+    loader.wait_all()
+    torch_sync(dev)
+    decode_s = time.perf_counter() - t0
+    if not (pipe.pt._has_textures and pipe.pt._has_normal_maps):
+        raise AssertionError("the tracer did not take the decoded textures")
+    log(f"# the Engine's database: parse {parse_s:.2f} s, meshopt pass {meshopt_s:.2f} s, "
+        f"SceneDatabase.build {build_s:.2f} s; pipeline init {init_s:.2f} s; "
+        f"{len(lazy.textures)} texture decodes through AsyncTextureLoader in {decode_s:.2f} s, "
+        f"{during} frames rendered while they landed; atlas {tuple(pipe.pt.mats['atlas'].shape)}")
+
+    # the frame after the decodes, at phase 14's first sample, against phase 14's
+    pipe.reset_accumulation()
+    pipe.pt._frame = 0  # the sample index of phase 14's first frame
+    eng.render()
+    img = pipe.pt.image()
+    rmse = torch.sqrt(torch.mean((img - ref_frame) ** 2)).item()
+    differ = int((img != ref_frame).any(dim=-1).sum().item())
+    log(f"# Engine path-traced frame (one sample, {WIDTH}x{HEIGHT}, phase 14's settings and env "
+        f"map) against phase 14's directly built frame: RMSE {rmse:.3g} (limit {SMALL_RMSE}), "
+        f"{differ} of {WIDTH * HEIGHT} pixels differ (meshopt's triangle order builds another "
+        f"tree)")
+    if not rmse <= SMALL_RMSE:
+        raise AssertionError("the Engine's frame of the loaded glTF disagrees with phase 14's")
+
+    # the trace calls of one Engine frame against the plain trace
+    calls = record_pt_traces(pipe.pt, cam, render=eng.render)
+    for kind, label, o, d, t_max in calls:
+        _, m, agree = compare_trace(kind, pipe.pt.scene, o, d, t_max, reps=3)
+        m.update(steps_stats(pipe.pt.scene, o, d, t_max))
+        log_batch(kind, f"Engine frame, {label}", o, m, agree,
+                  f"; live rays {int((t_max >= 0).sum().item())}; on {card}")
+        entry = timings[kind]
+        entry["max_abs_err"] = max(entry["max_abs_err"], m["max_abs_err"])
+        entry["batches"].append(dict(batch=f"engine {label}", rays=o.shape[0], agreement=agree,
+                                     **m))
+    del calls
+
+    # timed frames through run_headless (update + render each)
+    eng.run_headless(1)
+    torch_sync(dev)
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    eng.run_headless(TIMED_FRAMES)
+    torch_sync(dev)
+    pt_ms = (time.perf_counter() - t0) / TIMED_FRAMES * 1e3
+    launches["engine_pt"] = read_launch_counts()
+    for name in ("trace_closest", "trace_any"):
+        if launches["engine_pt"][name] == 0:
+            raise AssertionError(f"{name} was not launched on the Engine's path-traced frames")
+    out = eng.render()
+    if tuple(out.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("the Engine's image is not a finite (H,W,3) array")
+    log(f"# Engine path-traced frames (run_headless: update_device + frame): {pt_ms:.2f} "
+        f"ms/frame over {TIMED_FRAMES}, {WIDTH}x{HEIGHT}; launches {launches['engine_pt']}; "
+        f"on {card}")
+    profile_frame(lambda: eng.run_headless(1), "Engine path-traced frame (update + render)",
+                  lambda k: k.startswith(PT_RANGES) or k in PT_PASSES)
+    dev_profile = profiling.capture_device_profile(lambda: eng.run_headless(1))
+    log(f"# profiling.capture_device_profile of one Engine frame (ms): {dev_profile}")
+
+    # Engine.update at DYN_TIMES, through update_device
+    host_calls = []
+    host_update = db.update
+    db.update = lambda *a, **k: host_calls.append(a) or host_update(*a, **k)
+    eng.animation_time = 0.0
+    for t in DYN_TIMES:
+        ms = []
+        while eng.animation_time < t - 1e-9:
+            before = db.device_vertices
+            t0 = time.perf_counter()
+            eng.update(min(0.2, t - eng.animation_time))
+            torch_sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if db.device_vertices is before:
+                raise AssertionError("Engine.update did not go through update_device")
+        out = eng.render()
+        torch_sync(dev)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"the frame after the update to {t} s is not finite")
+        log(f"# Engine.update to {eng.animation_time:.3f} s through update_device: "
+            + ", ".join(f"{x:.2f}" for x in ms) + " ms a call (up to 12 sub-steps each); the "
+            f"next frame renders")
+    if host_calls:
+        raise AssertionError("Engine.update went through the host refit")
+    db.update = host_update
+
+    # the camera into the floor and into a wall, with camera_collision on
+    cam.pitch, cam.velocity = 0.0, np.zeros(3, np.float32)
+    for what, start, move, down in (("floor", (3.0, 0.8, 10.0), (0.0, -1.0, 0.0), (0, -1, 0)),
+                                    ("wall", (-10.5, 3.0, 10.0), (-1.0, 0.0, 0.0), (-1, 0, 0))):
+        cam.position = np.float32(start)
+        ms = settle(eng, move, 60, 120)
+        hit = db.intersect_ray(cam.position, np.float32(down))
+        dist = np.inf if hit is None else hit[0]
+        log(f"# camera pushed into the {what} for 1 s then at rest 2 s: ends at "
+            f"{np.round(cam.position, 4).tolist()}, {dist:.5f} from the surface (radius "
+            f"{cam.collision_radius}); update ms median {np.median(ms):.2f}, max "
+            f"{np.max(ms):.2f}")
+        if not dist >= cam.collision_radius:
+            raise AssertionError(f"the camera ended {dist} from the {what}")
+    # a physics light dropped onto the floor
+    eng.settings.light_physics = True
+    li = db.lights.add([2.0, 6.0, 8.0], [5.0, 5.0, 5.0], radius=0.3, has_physics=True)
+    ms = settle(eng, (0, 0, 0), 0, 150)
+    light = db.lights.lights[li]
+    hit = db.intersect_ray(light.position, np.float32([0, -1, 0]))
+    log(f"# physics light dropped from y 6: after 2.5 s at {np.round(light.position, 4).tolist()}"
+        f", {hit[0] if hit else float('inf'):.4f} above the surface below it (radius "
+        f"{light.radius}); update ms median {np.median(ms):.2f}")
+    if hit is None or not (0.0 < light.position[1] < 6.0):
+        raise AssertionError("the physics light left the scene")
+    eng.settings.light_physics = False
+    db.lights.remove(li)
+    cam.position = np.array(CAMERA["position"], np.float32)  # back to phase 3's view
+    cam.yaw, cam.pitch, cam.velocity = CAMERA["yaw"], 0.0, np.zeros(3, np.float32)
+
+    # rasterizer mode: the deferred frame with VXGI 256^3 through the Engine
+    eng.set_mode(RenderMode.RASTERIZER)
+    t0 = time.perf_counter()
+    eng.render()  # warm-up
+    torch_sync(dev)
+    warm_s = time.perf_counter() - t0
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(DEFERRED_FRAMES):
+        out = eng.render()
+    torch_sync(dev)
+    deferred_ms = (time.perf_counter() - t0) / DEFERRED_FRAMES * 1e3
+    launches["engine_deferred"] = read_launch_counts()
+    for name in ("trace_closest", "trace_any", "scatter_max_dense"):
+        if launches["engine_deferred"][name] == 0:
+            raise AssertionError(f"{name} was not launched on the Engine's deferred frame")
+    if tuple(out.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(out).all()) or \
+            not out.std().item() > 0.01:
+        raise AssertionError("the Engine's deferred image is not a finite, non-flat array")
+    log(f"# Engine deferred frames: {deferred_ms:.2f} ms/frame over {DEFERRED_FRAMES} (warm-up "
+        f"{warm_s:.2f} s), {WIDTH}x{HEIGHT}, VXGI {VXGI_RES}^3; launches "
+        f"{launches['engine_deferred']}; on {card}")
+    dpipe = eng._pipeline()
+    scatters = []
+    calls = record_deferred_traces(
+        dpipe, cam, render=lambda: scatters.extend(record_scatter_calls(eng.render)))
+    compare_recorded(calls, "Engine deferred frame", timings, card)
+    if not scatters:
+        raise AssertionError("the Engine's deferred frame made no scatter-max call")
+    for cell, vals, n_cells, bf16 in scatters:
+        got = vs.scatter_max_dense(cell, vals, n_cells, bf16=bf16)
+        want = vs.scatter_max_dense_plain(cell, vals, n_cells, bf16)
+        if not torch.equal(got, want):
+            raise AssertionError("scatter_max_dense differs from its plain version on the "
+                                 "Engine's call")
+        ms = cuda_time_ms(lambda: vs.scatter_max_dense(cell, vals, n_cells, bf16=bf16), 10)
+        timings["scatter_max_dense"].setdefault("batches", []).append(
+            dict(batch="engine deferred frame", updates=cell.numel(), ms=ms))
+        log(f"# scatter_max_dense on the Engine's call ({cell.numel()} updates x "
+            f"{vals.shape[0]} channels, bf16 {bf16}): equal to the plain version, {ms:.4f} ms")
+    del calls, scatters
+    profile_frame(eng.render, "Engine deferred frame", lambda k: k.startswith("deferred/"))
+
+    # a model added at run time: the two-level path
+    eng.set_mode(RenderMode.PATH_TRACER)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 3] = [2.0, 2.5, 12.0]
+    t0 = time.perf_counter()
+    inst = eng.add_model_runtime(sphere_model(**SPHERE_RES), m)
+    add_ms = (time.perf_counter() - t0) * 1e3
+    two_level, fn = [], pathtracer_mod.trace_closest_two_level
+
+    def recording(*args, **kw):
+        two_level.append(args[4:7])
+        return fn(*args, **kw)
+
+    pathtracer_mod.trace_closest_two_level = recording
+    try:
+        eng.render()  # warm-up: the new tracer
+    finally:
+        pathtracer_mod.trace_closest_two_level = fn
+    torch_sync(dev)
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.render()
+    torch_sync(dev)
+    inst_ms = (time.perf_counter() - t0) * 1e3
+    launches["engine_instanced"] = read_launch_counts()
+    tails = DEPTH * sum("tail" in c for c in TEXTURED_CALLS)  # the any-hit calls a frame
+    want = {"trace_closest_two_level": 2 * (DEPTH * len(TEXTURED_CALLS) - tails),
+            "trace_any_two_level": 2 * tails}
+    for name, n in want.items():
+        if launches["engine_instanced"][name] != n:
+            raise AssertionError(f"the instanced Engine frame made "
+                                 f"{launches['engine_instanced'][name]} {name} launches, not "
+                                 f"{n} (1 + 1 a call)")
+    iset = db.instance_set()
+    (hit, hit_inst), _ = compare_two_level("trace_closest", db.device_scene, iset, *two_level[0],
+                                           card, "Engine primaries")
+    share = (hit_inst == inst).float().mean().item()
+    log(f"# add_model_runtime of a {iset.scenes[0].tri_p0.shape[0]}-triangle sphere: "
+        f"{add_ms:.1f} ms; the next frame {inst_ms:.2f} ms (one frame), launches "
+        f"{launches['engine_instanced']}; its primaries on the sphere {share:.4f}; on {card}")
+    if not (share > 0 and bool(torch.isfinite(out).all())):
+        raise AssertionError("the sphere added at run time is not in the frame")
+    del two_level
+
+    # picking against the card's primary hits: the static scene at rest again
+    # (the animation loops every 2 s; at 0 s it is at rest, as pick's BLAS)
+    eng.animation_time = 0.0
+    eng.update(0.0)
+    pixels = [(WIDTH // 2, HEIGHT // 2), (WIDTH // 5, HEIGHT // 3), (4 * WIDTH // 5, HEIGHT // 4),
+              (WIDTH // 3, 4 * HEIGHT // 5), (9 * WIDTH // 10, 9 * HEIGHT // 10)]
+    for px, py in pixels:
+        picked = eng.pick_entity(px, py)
+        o, d = pick_ray(cam, WIDTH, HEIGHT, px, py)
+        h = kern.trace_closest(db.device_scene, torch.as_tensor(o[None], device=dev),
+                               torch.as_tensor(d[None], device=dev),
+                               torch.full((1,), 3.4e38, device=dev))
+        slot = int(h.slot[0].item())
+        if picked is None or slot < 0:
+            raise AssertionError(f"pixel {px},{py}: picked {picked}, card slot {slot}")
+        tri = int(db._slot_tri[slot])
+        rel = abs(picked[0] - h.t[0].item()) / picked[0]
+        log(f"# pick_entity({px}, {py}): triangle {picked[3]} at t {picked[0]:.6f}; the card's "
+            f"primary: slot {slot} -> triangle {tri}, t {h.t[0].item():.6f} (rel {rel:.2g})")
+        if tri != picked[3] or not rel <= 1e-5:
+            raise AssertionError(f"pick_entity({px}, {py}) disagrees with the card's hit")
+
+    # the recorder and the settings file
+    rec_path = os.path.join(tmp.name, "path.frd")
+    for k in range(3):
+        cam.position = np.float32([k * 1.5, 3.0 + k * 0.25, 20.0 - k * 2.0])
+        cam.yaw, cam.pitch = -90.0 + 7.5 * k, -2.0 * k
+        eng.recorder.record(cam, animation_time=eng.animation_time + k)
+    eng.recorder.save(rec_path)
+    loaded = type(eng.recorder).load(rec_path)
+    for want in eng.recorder.frames:
+        fs = loaded.replay(cam)
+        if fs is None or fs.pack() != want.pack() or cam.position.tobytes() != \
+                want.position.tobytes():
+            raise AssertionError("a recorded frame did not survive save / load / replay")
+    cfg_path = os.path.join(tmp.name, "engine.json")
+    save_config(eng.settings, cfg_path)
+    if load_config(cfg_path) != eng.settings:
+        raise AssertionError("save_config / load_config did not round-trip the settings")
+    log(f"# recorder: 3 frames through save / load / replay unchanged "
+        f"({os.path.getsize(rec_path)} B); save_config / load_config round-trip the settings")
+    del eng, pipe, dpipe, db, lazy, env
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    log(f"# phase 21 (the app: a glTF through the Engine) took "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+def phase_small_engine(dev, seed):
+    """Phase 21's last check: a small atrium written as a glTF and run
+    through the Engine on the card and on the CPU, in both modes, 48x32."""
+    import tempfile
+
+    import numpy as np
+
+    from idkengine_tpu_torch.engine import Engine, RenderMode
+    from idkengine_tpu_torch.render import Camera
+
+    model, shading = app_model(seed, 8000)
+    env_small = textured_env("cpu", 64, 32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_small_") as tmp:
+        path = os.path.join(tmp, "small.glb")
+        write_glb(model, path)
+        imgs = {RenderMode.PATH_TRACER: [], RenderMode.RASTERIZER: []}
+        for device in (dev, "cpu"):
+            db, _, _ = load_app_db(path, device, shading, defer=False)
+            eng = Engine(db, engine_settings(48, 32, 32), env_map=env_small, device=device)
+            eng.camera = Camera(position=np.array(CAMERA["position"], np.float32),
+                                yaw=CAMERA["yaw"], fov_y=CAMERA["fov_y"])
+            for mode, frames in ((RenderMode.PATH_TRACER, 1), (RenderMode.RASTERIZER, 2)):
+                eng.set_mode(mode)
+                for _ in range(frames):  # the deferred frame's second reads the TAA history
+                    img = eng.render()
+                imgs[mode].append(img.cpu().numpy())
+    for mode, (card_img, cpu_img) in imgs.items():
+        rmse = float(np.sqrt(np.mean((card_img - cpu_img) ** 2)))
+        log(f"# small Engine (atrium 8000 tris as glTF, 48x32, {mode.value}): card vs CPU RMSE "
+            f"{rmse:.3g} (limit {SMALL_RMSE})")
+        if not (rmse <= SMALL_RMSE and card_img.std() > 0):
+            raise AssertionError(f"the card's small Engine frame ({mode.value}) disagrees with "
+                                 f"the CPU's")
+
+
 def main():
     import torch
 
@@ -2385,7 +3014,8 @@ def main():
     log(f"# phases 1-12 took {time.perf_counter() - t_start:.1f} s")
     probes = phase_probes(dev, card)
     log(f"# phases 1-13 took {time.perf_counter() - t_start:.1f} s")
-    textured_launches, textured_db = phase_textured(dev, card, args.seed, factor_frame, timings)
+    textured_launches, textured_db, textured_first = phase_textured(dev, card, args.seed,
+                                                                    factor_frame, timings)
     launches.update(textured_launches)
     log(f"# phases 1-14 took {time.perf_counter() - t_start:.1f} s")
     caps, capped = phase_capped(scene, batches, timings, card)
@@ -2413,8 +3043,14 @@ def main():
     launches.update(inst_launches)
     timings.update(two_level)
     del dyn_db
+    torch.cuda.empty_cache()
     log(f"# phases 19-20 took {time.perf_counter() - t_dyn:.1f} s")
-    log(f"# phases 1-20 took {time.perf_counter() - t_start:.1f} s (the run's wall time)")
+    t_app = time.perf_counter()
+    launches.update(phase_app(dev, card, args.seed, textured_first, timings))
+    del textured_first
+    phase_small_engine(dev, args.seed)
+    log(f"# phase 21 took {time.perf_counter() - t_app:.1f} s")
+    log(f"# phases 1-21 took {time.perf_counter() - t_start:.1f} s (the run's wall time)")
 
     kernels = []
     for name, where in KERNELS_WHERE.items():

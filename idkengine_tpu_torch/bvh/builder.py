@@ -6,7 +6,10 @@ The library is compiled from the port's own copy of the C++ core
 repository's ignored `build/` directory. There is no numpy fallback builder:
 without a C++ compiler the build raises.
 
-A BLAS keeps its native tree for `refit` (the C++ `blas_refit`); `TLAS`
+A BLAS keeps its native tree for `refit` (the C++ `blas_refit`) and for the
+host queries of picking and collision (`intersect_ray`, `intersect_box`,
+`sphere_closest_triangle`: the C++ `blas_intersect_ray`,
+`blas_intersect_box`, `sphere_vs_triangles`; no numpy versions); `TLAS`
 builds the instance tree with the C++ `tlas_build`. `refit_nodes_numpy`
 and `tlas_nodes_numpy` are their numpy versions.
 
@@ -82,6 +85,14 @@ def _load():
     lib.blas_refit.argtypes = [ctypes.c_void_p, f32p, u32p]
     lib.tlas_build.restype = ctypes.c_void_p
     lib.tlas_build.argtypes = [f32p, ctypes.c_uint32, ctypes.c_uint32]
+    lib.blas_intersect_ray.restype = ctypes.c_int
+    lib.blas_intersect_ray.argtypes = [ctypes.c_void_p, f32p, u32p, f32p, f32p, ctypes.c_float,
+                                       f32p, f32p, f32p, u32p]
+    lib.blas_intersect_box.restype = ctypes.c_uint32
+    lib.blas_intersect_box.argtypes = [ctypes.c_void_p, f32p, f32p, u32p, ctypes.c_uint32]
+    lib.sphere_vs_triangles.restype = ctypes.c_int
+    lib.sphere_vs_triangles.argtypes = [f32p, u32p, u32p, ctypes.c_uint32, f32p, ctypes.c_float,
+                                        f32p, f32p]
     lib.bvh_thread_links.restype = None
     lib.bvh_thread_links.argtypes = [ctypes.c_void_p, ctypes.c_uint32, i64p, i64p]
     lib.bvh_collapse4.restype = ctypes.c_int64
@@ -181,6 +192,49 @@ class BLAS:
         self.vertices = np.ascontiguousarray(vertices, dtype=np.float32).reshape(-1, 3)
         _load().blas_refit(self._handle, _f32p(self.vertices), _u32p(self.indices))
         self._sync_from_native()
+
+    # -- host queries (picking, collision), in the C++ core ---------------
+    def intersect_ray(self, origin, direction, t_max=3.4e38):
+        """Closest hit: (t, u, v, triangle id) or None (ref: BLAS.cs:313-386)."""
+        origin = np.ascontiguousarray(origin, dtype=np.float32)
+        direction = np.ascontiguousarray(direction, dtype=np.float32)
+        t, u, v = ctypes.c_float(), ctypes.c_float(), ctypes.c_float()
+        tri = ctypes.c_uint32()
+        hit = _load().blas_intersect_ray(
+            self._handle, _f32p(self.vertices), _u32p(self.indices), _f32p(origin),
+            _f32p(direction), np.float32(t_max), ctypes.byref(t), ctypes.byref(u),
+            ctypes.byref(v), ctypes.byref(tri))
+        if not hit:
+            return None
+        return (t.value, u.value, v.value, int(tri.value))
+
+    def intersect_box(self, box_min, box_max, cap: int = 65536) -> np.ndarray:
+        """Triangle ids in leaves overlapping the AABB, at most `cap` (ref:
+        BLAS.cs:388-439)."""
+        box_min = np.ascontiguousarray(box_min, dtype=np.float32)
+        box_max = np.ascontiguousarray(box_max, dtype=np.float32)
+        out = np.empty(cap, dtype=np.uint32)
+        n = _load().blas_intersect_box(self._handle, _f32p(box_min), _f32p(box_max), _u32p(out),
+                                       np.uint32(cap))
+        return out[:n]
+
+    def sphere_closest_triangle(self, candidate_tris, center, radius):
+        """The closest point within `radius` of `center` on the candidate
+        triangles: (closest point, distance, index into the candidates), or
+        None (collision path, ref: Intersections.cs:38-94)."""
+        candidate_tris = np.ascontiguousarray(candidate_tris, dtype=np.uint32)
+        if not candidate_tris.size:
+            return None
+        center = np.ascontiguousarray(center, dtype=np.float32)
+        closest = np.empty(3, dtype=np.float32)
+        dist = ctypes.c_float()
+        i = _load().sphere_vs_triangles(
+            _f32p(self.vertices), _u32p(self.indices), _u32p(candidate_tris),
+            np.uint32(candidate_tris.size), _f32p(center), np.float32(radius), _f32p(closest),
+            ctypes.byref(dist))
+        if i < 0:
+            return None
+        return closest, dist.value, int(i)
 
     def __del__(self):
         if _lib is not None and getattr(self, "_handle", None):

@@ -5,8 +5,9 @@ Host-side state mirrors the reference camera (ref: Source/Camera.cs); ray
 generation is the path tracer's camera ray setup
 (ref: PathTracing/FirstHit/compute.glsl:55-61 thin-lens DoF); the view and
 projection matrices and the frustum serve the deferred pipeline's shadow-map
-culling. The JAX camera's movement physics (`process_inputs`,
-`advance_simulation`) serves the interactive engine and waits for it.
+culling. The movement physics (`process_inputs`, `advance_simulation`: the
+reference's velocity, impulse and drag, Camera.cs:122-150) serves the
+engine's update, with collision through collision.camera_collision.
 """
 from __future__ import annotations
 
@@ -29,6 +30,12 @@ class Camera:
     # thin lens
     focal_distance: float = 10.0
     lens_radius: float = 0.0
+    # physics (ref: Camera.cs:122-150)
+    velocity: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
+    mass: float = 1.0
+    drag: float = 6.0
+    speed: float = 6.0
+    collision_radius: float = 0.35
 
     @property
     def forward(self) -> np.ndarray:
@@ -64,6 +71,22 @@ class Camera:
         f = self.forward
         corner_dirs = np.stack([f - r - u, f + r - u, f + r + u, f - r + u])
         return Frustum.from_corner_rays(self.position, corner_dirs, self.near, far)
+
+    def process_inputs(self, move: np.ndarray, dt: float, look: tuple[float, float] = (0, 0)):
+        """Apply look deltas + acceleration impulses (ref: Camera.cs ProcessInputs)."""
+        self.yaw += look[0]
+        self.pitch = float(np.clip(self.pitch + look[1], -89.0, 89.0))
+        acc = (
+            self.right * move[0] + np.array([0, 1, 0], np.float32) * move[1] + self.forward * move[2]
+        )
+        norm = np.linalg.norm(acc)
+        if norm > 1e-6:
+            self.velocity = self.velocity + (acc / norm) * self.speed * dt * self.drag
+
+    def advance_simulation(self, dt: float):
+        """Velocity-Verlet-ish integration with drag (ref: Camera.cs:122-150)."""
+        self.position = self.position + self.velocity * dt
+        self.velocity = self.velocity * max(1.0 - self.drag * dt, 0.0)
 
     def ray_params(self, width: int, height: int) -> dict:
         """Static per-frame camera basis for raygen (float32 numpy vectors)."""

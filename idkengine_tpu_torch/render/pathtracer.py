@@ -57,7 +57,7 @@ from ..ops.packet_trace import (trace_any, trace_any_two_level, trace_closest,
                                 trace_closest_two_level)
 from ..ops.two_phase import two_phase_any, two_phase_closest
 from ..ops.trace import Hit, InstanceSet, SceneArrays, linear_map
-from ..scene.materials import ATLAS_MIPS
+from ..scene.materials import ATLAS_MIPS, LAYER_KEYS
 from ..scene.scene_db import MeshShading
 from ..utils import rng
 from ..utils.compression import compress_normal_t, decompress_normal
@@ -278,8 +278,7 @@ class PathTracer:
         self.lights = {k: torch.as_tensor(np.asarray(lights[k], np.float32), device=self.device)
                        for k in ("pos", "radius", "radiance")}
         self.mats = {k: torch.as_tensor(np.asarray(materials[k]), device=self.device).long()
-                     for k in ("base_layer", "mr_layer", "emissive_layer", "normal_layer")
-                     if k in materials}
+                     for k in LAYER_KEYS if k in materials}
         if "atlas" in materials:
             self.mats["atlas"] = torch.as_tensor(np.asarray(materials["atlas"], np.uint8),
                                                  device=self.device)
@@ -291,17 +290,7 @@ class PathTracer:
         self._env_tables = None
         if env_map is not None and self.settings.use_env_map and self.settings.env_nee:
             self._env_tables = envsample.EnvSampler(env_map, device=self.device).tables
-        # static feature gates: the hot path stays untouched for scenes
-        # without textures, alpha-tested or normal-mapped materials
-        layers = {k: np.asarray(materials.get(k, [-1])) for k in
-                  ("base_layer", "mr_layer", "emissive_layer", "normal_layer")}
-        self._has_textures = bool(any(np.any(layers[k] >= 0) for k in
-                                      ("base_layer", "mr_layer", "emissive_layer")))
-        cutoffs = np.asarray(materials.get("alpha_cutoff", [-1.0]))
-        alphas = np.asarray(materials["base_color"])[:, 3]
-        self._has_alpha = bool(np.any((cutoffs >= 0.0)
-                                      & ((alphas < 1.0) | (layers["base_layer"] >= 0))))
-        self._has_normal_maps = bool(np.any(layers["normal_layer"] >= 0))
+        self._set_feature_gates(materials)
         # stochastic re-traces past alpha-discarded surfaces
         self.alpha_rounds = 2
         # instanced models' slots follow the static slots (the slot offsets
@@ -321,6 +310,36 @@ class PathTracer:
         self.accumulated_samples = 0
         self._frame = 0
         self.last_rays_traced = torch.zeros((), device=self.device)
+
+    def _set_feature_gates(self, materials: dict):
+        """Static feature gates: the hot path stays untouched for scenes
+        without textures, alpha-tested or normal-mapped materials."""
+        layers = {k: np.asarray(materials.get(k, [-1])) for k in LAYER_KEYS}
+        self._has_textures = bool(any(np.any(layers[k] >= 0) for k in
+                                      ("base_layer", "mr_layer", "emissive_layer")))
+        cutoffs = np.asarray(materials.get("alpha_cutoff", [-1.0]))
+        alphas = np.asarray(materials["base_color"])[:, 3]
+        self._has_alpha = bool(np.any((cutoffs >= 0.0)
+                                      & ((alphas < 1.0) | (layers["base_layer"] >= 0))))
+        self._has_normal_maps = bool(np.any(layers["normal_layer"] >= 0))
+
+    def adopt_texture_layers(self, atlas_layer, layer: int, materials: dict):
+        """A texture decoded after construction (scene/async_io.py): atlas
+        layer `layer` (`atlas_layer(i)` gives layer i's mip strip) is written
+        in place on the atlas's device, or appended where it is new; the
+        materials' layer indices (MaterialTable.layer_arrays) replace the
+        tracer's, and the gates follow them from the next frame on. The JAX
+        tracer turns on only its texture gate here, so its late normal maps
+        and texture alpha stay off; the port's frame is the eager load's."""
+        atlas = self.mats["atlas"]
+        if layer < atlas.shape[0]:
+            atlas[layer] = torch.as_tensor(atlas_layer(layer), device=atlas.device)
+        else:
+            new = np.stack([atlas_layer(i) for i in range(atlas.shape[0], layer + 1)])
+            self.mats["atlas"] = torch.cat([atlas, torch.as_tensor(new, device=atlas.device)])
+        for k in LAYER_KEYS:
+            self.mats[k] = torch.as_tensor(materials[k], device=self.device).long()
+        self._set_feature_gates(materials)
 
     @staticmethod
     def _shading_differs(slot_shading) -> bool:

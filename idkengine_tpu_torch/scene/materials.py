@@ -23,6 +23,7 @@ from .model import Material, Model
 
 ATLAS_SIZE = 512  # each layer is SIZE x SIZE RGBA8
 ATLAS_MIPS = 7  # mip levels packed per layer (512 .. 8)
+LAYER_KEYS = ("base_layer", "mr_layer", "emissive_layer", "normal_layer")
 
 _PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed-point coefficients
 
@@ -209,6 +210,13 @@ class MaterialTable:
     def atlas_layer(self, layer: int) -> np.ndarray:
         """One packed atlas layer incl. its mip strip (SIZE, 2*SIZE, 4)."""
         return _build_mip_strip(self._atlas_layers[layer])
+
+    def layer_arrays(self) -> dict[str, np.ndarray]:
+        """The texture layers of every material and the fields the renderers'
+        texture gates read (base colour, alpha cutoff), without the atlas."""
+        return {"base_color": np.stack(self.base_color),
+                "alpha_cutoff": np.asarray(self.alpha_cutoff, np.float32),
+                **{k: np.asarray(getattr(self, k), np.int32) for k in LAYER_KEYS}}
 
     def soa(self) -> dict[str, np.ndarray]:
         if not self.base_color:

@@ -387,6 +387,21 @@ class SceneDatabase:
         return self.device_scene
 
     # ------------------------------------------------------------------
+    def intersect_ray(self, origin, direction, t_max=3.4e38):
+        """CPU picking/collision ray against the world BLAS of the build
+        (ref: BVH.Intersect, Bvh/BVH.cs:162-223): (t, u, v, triangle id) or
+        None."""
+        if self.blas is None:
+            raise ValueError("build the scene database before querying it")
+        return self.blas.intersect_ray(origin, direction, t_max)
+
+    def intersect_box(self, box_min, box_max):
+        """Triangle ids of the world BLAS's leaves overlapping the box."""
+        if self.blas is None:
+            raise ValueError("build the scene database before querying it")
+        return self.blas.intersect_box(box_min, box_max)
+
+    # ------------------------------------------------------------------
     # Instanced models: own BLAS per model, traced through the two-level
     # path (ref: TLAS.cs + BVH.cs:162-223) — transform updates never
     # rebuild or refit geometry.

@@ -1093,3 +1093,86 @@ def test_instanced_pathtracer_on_card_matches_cpu(dev):
             assert kern.trace_any_two_level.launches == 2 * 3
     assert np.isfinite(imgs[0]).all() and imgs[0].std() > 0
     assert float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2))) <= 1e-3
+
+
+def _app_engine(device, mode, path, shading):
+    """chip_smoke's small Engine (phase 21): the glTF at `path` on `device`."""
+    import chip_smoke as cs
+
+    from idkengine_tpu_torch.engine import Engine
+
+    db, _, _ = cs.load_app_db(path, device, shading, defer=False)
+    eng = Engine(db, cs.engine_settings(48, 32, 32), env_map=cs.textured_env("cpu", 64, 32),
+                 device=device)
+    eng.camera = Camera(position=np.array(cs.CAMERA["position"], np.float32),
+                        yaw=cs.CAMERA["yaw"], fov_y=cs.CAMERA["fov_y"])
+    eng.set_mode(mode)
+    return eng
+
+
+@pytest.mark.parametrize("mode", ["path_tracer", "rasterizer"])
+def test_gltf_engine_on_card_matches_cpu(dev, tmp_path, mode):
+    """A small textured, animated atrium written as a glTF (chip_smoke's
+    writer) through the Engine on the card and on the CPU: frames, an
+    update through update_device, another frame (RMSE <= 1e-3 each)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    from idkengine_tpu_torch.engine import RenderMode
+
+    model, shading = cs.app_model(0, 8000)
+    path = str(tmp_path / "small.glb")
+    cs.write_glb(model, path)
+    imgs = []
+    for device in (dev, "cpu"):
+        eng = _app_engine(device, RenderMode(mode), path, shading)
+        frames = [eng.render(), eng.render()]
+        eng.update(0.25)
+        frames.append(eng.render())
+        if device == dev:
+            assert eng.db.device_vertices is not None and eng.db.device_vertices.is_cuda
+        imgs.append([f.cpu().numpy() for f in frames])
+    for a, b in zip(*imgs):
+        assert np.isfinite(a).all() and a.std() > 0
+        assert float(np.sqrt(np.mean((a - b) ** 2))) <= 1e-3
+
+
+def test_async_atlas_write_on_card(dev, tmp_path):
+    """attach_async_textures writes each decoded layer into the tracer's
+    atlas on the card (in place, or appended), equal to the CPU tracer's
+    after the same decodes; the card frame after them matches the eager
+    load's CPU frame (RMSE <= 1e-3)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    from idkengine_tpu_torch.scene.async_io import (AsyncTextureLoader, MainThreadQueue,
+                                                    attach_async_textures)
+
+    model, shading = cs.app_model(0, 8000)
+    path = str(tmp_path / "small.glb")
+    cs.write_glb(model, path)
+    cam = Camera(position=np.array(cs.CAMERA["position"], np.float32), yaw=cs.CAMERA["yaw"],
+                 fov_y=cs.CAMERA["fov_y"])
+    tracers = []
+    for device in (dev, "cpu"):
+        db, lazy, _ = cs.load_app_db(path, device, shading, defer=True)
+        pt = PathTracer(db.device_scene, db.materials.soa(), db.lights.soa(), 48, 32,
+                        cs.textured_settings(), slot_shading=db.slot_shading(), device=device)
+        pt.render_frame(cam)
+        atlas = pt.mats["atlas"]
+        loader = AsyncTextureLoader(MainThreadQueue(), workers=1)
+        attach_async_textures(db, lazy, loader, mat_offset=0, pt=pt)
+        loader.wait_all(timeout=120)
+        assert pt.mats["atlas"].device == atlas.device and pt._has_textures
+        tracers.append(pt)
+    assert tracers[0].mats["atlas"].is_cuda and tracers[0].mats["atlas"].shape[0] == 6
+    assert torch.equal(tracers[0].mats["atlas"].cpu(), tracers[1].mats["atlas"])
+    eager, _, _ = cs.load_app_db(path, "cpu", shading, defer=False)
+    want = PathTracer(eager.device_scene, eager.materials.soa(), eager.lights.soa(), 48, 32,
+                      cs.textured_settings(), slot_shading=eager.slot_shading(), device="cpu")
+    ref = want.render_frame(cam).numpy()
+    pt = tracers[0]
+    pt.reset_accumulation()
+    pt._frame = 0
+    img = pt.render_frame(cam).cpu().numpy()
+    assert float(np.sqrt(np.mean((img - ref) ** 2))) <= 1e-3

@@ -10,6 +10,7 @@ import sys
 
 import idkengine_tpu_torch
 from idkengine_tpu_torch.bvh import builder
+from idkengine_tpu_torch.engine import Engine
 from idkengine_tpu_torch.ops import packet_trace, two_phase, voxel_scatter
 from idkengine_tpu_torch.render import DeferredPipeline, PathTracer, PathTracerPipeline
 from idkengine_tpu_torch.render.shadowmap import PointShadowManager, build_point_shadow
@@ -39,7 +40,20 @@ def test_import_leaves_jax_out():
             "import idkengine_tpu_torch.render.oit, idkengine_tpu_torch.render.ssr\n"
             "import idkengine_tpu_torch.render.upscale, idkengine_tpu_torch.render.adaptive\n"
             "import idkengine_tpu_torch.render.dynamic, idkengine_tpu_torch.scene.animation\n"
-            "import idkengine_tpu_torch.scene.skinning\n"
+            "import idkengine_tpu_torch.scene.skinning, idkengine_tpu_torch.log\n"
+            "import idkengine_tpu_torch.scene.ktx2, idkengine_tpu_torch.scene.basisu\n"
+            "import idkengine_tpu_torch.scene.meshopt, idkengine_tpu_torch.scene.gltf\n"
+            "import idkengine_tpu_torch.scene.async_io, idkengine_tpu_torch.recorder\n"
+            "import idkengine_tpu_torch.profiling, idkengine_tpu_torch.engine\n"
+            "import idkengine_tpu_torch.viewer\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'idkengine_tpu')]\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": REPO}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=REPO, timeout=120)
+
+
+def test_chip_smoke_leaves_jax_out():
+    code = ("import sys, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'idkengine_tpu')]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": REPO}
@@ -79,7 +93,7 @@ def test_entry_points_default_to_the_card():
     for fn, name in ((SceneDatabase.build, "device"), (PathTracer.__init__, "device"),
                      (DeferredPipeline.__init__, "device"), (VoxelGrid.__init__, "device"),
                      (PathTracerPipeline.__init__, "device"), (build_point_shadow, "device"),
-                     (PointShadowManager.__init__, "device")):
+                     (PointShadowManager.__init__, "device"), (Engine.__init__, "device")):
         assert inspect.signature(fn).parameters[name].default == "cuda", fn
     for probe in PROBES:
         assert inspect.signature(probe.main).parameters["device"].default == "cuda", probe
