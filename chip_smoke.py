@@ -148,12 +148,29 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      save / load / replay; save_config / load_config; then a small Engine
      (an 8000-triangle atrium as glTF, 48x32) on the card against the CPU in
      both modes;
- 22. print the kernels' JSON line, then the result line.
+ 22. sharding and sorting at full width (parallel/shard.py,
+     ops/device_sort.py): phase 5's frame rendered through
+     ShardedPathTracer over a mesh of the card listed SHARDS times, from
+     the same start (phase 4's and 5's frames), equal to phase 5's image on
+     every pixel; timed frames
+     with the counts reset just before (SHARDS x phase 5's trace launches,
+     path `sharded`), each shard's sample and the gather timed apart
+     beside the unsharded sample, one sharded and one unsharded frame
+     profiled; shard_packet_closest / shard_packet_any on phase 4's three
+     batches bit-equal to the unsharded kernels; dryrun_multichip over the
+     mesh (the 110k atrium with two instanced spheres at 256x256, then the
+     sharded traces); PathTracerPipeline(shard_devices=-1) (wraps only with
+     more than one card); radix_argsort and sort_rays_by_key on 1920x1080
+     keys from --seed in the 18-bit domain against a stable torch.argsort,
+     timed beside one torch.sort and the unsharded frame's `pt/sort`; the
+     Cornell box at 64x64 over a mixed mesh [card, CPU] against the
+     CPU-only render;
+ 23. print the kernels' JSON line, then the result line.
 
 The script prints its wall time before the kernels' line. It imports
 nothing of JAX. Without a CUDA card it exits nonzero before printing any
 result. `--seed` (default 0) seeds the textured scene's textures, the
-instances' transforms and the skinning's joints.
+instances' transforms, the skinning's joints and phase 22's sort keys.
 """
 import argparse
 import json
@@ -254,6 +271,9 @@ INSTANCE_COUNT = 16
 SPHERE_RES = dict(n_lat=128, n_lon=256)  # the instanced sphere: 65,024 triangles
 SKIN_JOINTS = 64  # the skinning timing's joints, four a vertex
 INSTANCED_SHARE = 0.01  # the least share of primaries on an instance
+SHARDS = 4  # phase 22: shards of the sharded frame, all on the one card
+SHARD_RMSE = 1e-5  # the dry run's bound, where a sharded image is not bit-equal
+SORT_BITS = 18  # phase 22: the ray sort key's domain (ops/device_sort.py)
 PROBE_CHECK_ITERS = 256  # steps of each probe's kernel-vs-plain check
 PROBE_CHECK_VISITS = 16  # leaf visits of bench_mxu_leaf's kernel-vs-plain check
 PROBE_SRC = "idkengine_tpu_torch/csrc/"
@@ -545,14 +565,20 @@ def read_launch_counts():
             "two_phase_b": two_phase.phase_b_closest.launches + two_phase.phase_b_any.launches}
 
 
+def main_settings():
+    """The main path's tracer settings (phase 5)."""
+    from idkengine_tpu_torch.render import PathTracerSettings
+
+    return PathTracerSettings(ray_depth=DEPTH, russian_roulette=False, do_ray_sorting=True,
+                              sky_strength=1.0)
+
+
 def make_tracer(db, scene, cam, dev):
     """The path tracer of the main path, after one warm-up frame."""
-    from idkengine_tpu_torch.render import PathTracer, PathTracerSettings
+    from idkengine_tpu_torch.render import PathTracer
 
-    settings = PathTracerSettings(ray_depth=DEPTH, russian_roulette=False,
-                                  do_ray_sorting=True, sky_strength=1.0)
     t0 = time.perf_counter()
-    pt = PathTracer(scene, db.materials.soa(), db.lights.soa(), WIDTH, HEIGHT, settings,
+    pt = PathTracer(scene, db.materials.soa(), db.lights.soa(), WIDTH, HEIGHT, main_settings(),
                     device=dev)
     pt.render_frame(cam)  # warm-up
     torch_sync(dev)
@@ -2970,6 +2996,206 @@ def phase_small_engine(dev, seed):
                                  f"the CPU's")
 
 
+def phase_sharded_frame(db, scene, cam, dev, card, phase5):
+    """Phase 22, the main path sharded: phase 5's frame through
+    ShardedPathTracer over the card listed SHARDS times, from the same
+    start; equal to phase 5's image on every pixel (else within
+    SHARD_RMSE, the differing pixels counted). Returns the launches of the
+    timed frames and the tracer."""
+    import torch
+
+    from idkengine_tpu_torch.parallel.shard import Mesh, ShardedPathTracer
+    from idkengine_tpu_torch.render import PathTracer
+
+    t0 = time.perf_counter()
+    spt = ShardedPathTracer(PathTracer(scene, db.materials.soa(), db.lights.soa(), WIDTH, HEIGHT,
+                                       main_settings(), device=dev), Mesh((dev,) * SHARDS))
+    for _ in range(phase5["frames"] - TIMED_FRAMES):  # phase 5's warm-up and phase 4's frame
+        spt.render_frame(cam)
+    torch_sync(dev)
+    log(f"# sharded tracer init + {phase5['frames'] - TIMED_FRAMES} untimed frames "
+        f"{time.perf_counter() - t0:.2f} s")
+    reset_all_launch_counts()
+    rays = 0.0
+    t0 = time.perf_counter()
+    for _ in range(TIMED_FRAMES):
+        img = spt.render_frame(cam)
+        rays += float(spt.last_rays_traced)
+    torch_sync(dev)
+    dt = time.perf_counter() - t0
+    launches = read_launch_counts()
+    log(f"# sharded frame ({SHARDS} shards on {dev}): {dt / TIMED_FRAMES * 1e3:.2f} ms/frame "
+        f"(phase 5's {phase5['ms']:.2f}), {rays / dt / 1e6:.2f} Mrays/s "
+        f"({rays / TIMED_FRAMES / 1e6:.3f} Mrays/frame), on {card}; launches {launches}")
+    for name in ("trace_closest", "trace_any"):
+        if launches[name] != SHARDS * phase5["launches"][name]:
+            raise AssertionError(f"sharded frame: {launches[name]} {name} launches, not "
+                                 f"{SHARDS} x phase 5's {phase5['launches'][name]}")
+    want = phase5["image"]
+    if spt.accumulated_samples != phase5["frames"]:
+        raise AssertionError("sharded frame: another number of samples than phase 5's")
+    differ = int((img != want).any(dim=-1).sum().item())
+    rmse = torch.sqrt(torch.mean((img - want) ** 2)).item()
+    log(f"# sharded against phase 5's image after {spt.accumulated_samples} frames: "
+        f"{'equal on every pixel' if differ == 0 else f'{differ} pixels differ'}, RMSE {rmse:.3g}")
+    if not rmse <= SHARD_RMSE:
+        raise AssertionError(f"sharded frame disagrees with phase 5's: RMSE {rmse}")
+    return launches, dict(ms=dt / TIMED_FRAMES * 1e3, pixels_differ=differ, rmse=rmse), spt
+
+
+def phase_shard_parts(spt, cam, dev, card):
+    """Phase 22: each shard's sample, the unsharded sample and the gather
+    timed apart (CUDA events), then one sharded and one unsharded frame
+    under the profiler. Returns the unsharded frame's profile."""
+    import torch
+
+    from idkengine_tpu_torch.parallel.shard import shard_ranges
+
+    pt = spt.pt
+    cam_params = cam.ray_params(WIDTH, HEIGHT)
+    ranges = shard_ranges(WIDTH * HEIGHT, SHARDS)
+    shard_ms = [cuda_time_ms(lambda rng=rng: pt._render_sample(cam_params, 0, pixels=rng), 3)
+                for rng in ranges]
+    whole_ms = cuda_time_ms(lambda: pt._render_sample(cam_params, 0), 3)
+    parts = [pt._render_sample(cam_params, 0, pixels=rng) for rng in ranges]
+    gather_ms = cuda_time_ms(lambda: ([torch.cat([p[k] for p in parts]) for k in range(4)],
+                                      sum(p[4] for p in parts)), 10)
+    log(f"# shards' samples {', '.join(f'{m:.2f}' for m in shard_ms)} ms (sum "
+        f"{sum(shard_ms):.2f}), the unsharded sample {whole_ms:.2f} ms, the gather "
+        f"{gather_ms:.4f} ms (CUDA events, {SHARDS} shards on {dev}; on {card})")
+    waits = host_waits(lambda: pt._render_sample(cam_params, 0, pixels=ranges[0]))
+    log(f"# the runtime calls of one shard's sample that can wait for the card (a wait "
+        f"would keep shards on distinct cards from overlapping): {waits or 'none'}")
+    is_pass = lambda key: key.startswith("shard/") or key.startswith(PT_RANGES)  # noqa: E731
+    sharded = profile_frame(lambda: spt.render_frame(cam), "sharded frame", is_pass)
+    whole = profile_frame(lambda: pt.render_frame(cam), "unsharded frame (phase 5's settings)",
+                          is_pass)
+    return dict(shard_ms=shard_ms, sample_ms=whole_ms, gather_ms=gather_ms,
+                profile=sharded), whole
+
+
+def host_waits(fn) -> dict:
+    """The CUDA runtime calls made while fn() runs that can wait for the
+    card (synchronizes, copies; torch.profiler's host events): name ->
+    count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    waits = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and any(w in e.key for w in ("Synchronize", "cudaMemcpy"))}
+    torch.cuda.synchronize()
+    return waits
+
+
+def phase_shard_traces(scene, batches, dev, card):
+    """Phase 22: shard_packet_closest / shard_packet_any over the card listed
+    SHARDS times on phase 4's three batches, bit-equal to the unsharded
+    kernels (t, slot, u, v; occlusion); both timed."""
+    import torch
+
+    from idkengine_tpu_torch.ops import packet_trace as kern
+    from idkengine_tpu_torch.parallel.shard import Mesh, shard_packet_any, shard_packet_closest
+
+    mesh = Mesh((dev,) * SHARDS)
+    sharded = {"trace_closest": shard_packet_closest(mesh, scene),
+               "trace_any": shard_packet_any(mesh, scene)}
+    for label, (_, o, d, t_max) in batches.items():
+        for kind, fn in sharded.items():
+            want = getattr(kern, kind)(scene, o, d, t_max)
+            got = fn(o, d, t_max)
+            same = (all(torch.equal(a, b) for a, b in zip(got, want)) if kind == "trace_closest"
+                    else torch.equal(got, want))
+            if not same:
+                raise AssertionError(f"sharded {kind} differs from the kernel on the {label} batch")
+            ms = cuda_time_ms(lambda fn=fn, o=o, d=d, t_max=t_max: fn(o, d, t_max), 5)
+            one_ms = cuda_time_ms(lambda kind=kind, o=o, d=d, t_max=t_max:
+                                  getattr(kern, kind)(scene, o, d, t_max), 5)
+            log(f"# sharded {kind}, {label} batch ({o.shape[0]} rays, {SHARDS} shards): "
+                f"bit-equal to the kernel; {ms:.4f} ms against {one_ms:.4f} unsharded; on {card}")
+
+
+def phase_sorts(dev, card, seed, frame_profile):
+    """Phase 22: radix_argsort and sort_rays_by_key on 1920x1080 keys from
+    `seed` in the 18-bit domain against a stable torch.argsort, each timed
+    beside one torch.sort and the unsharded frame's `pt/sort` range."""
+    import torch
+
+    from idkengine_tpu_torch.ops.device_sort import radix_argsort, sort_rays_by_key
+
+    r = WIDTH * HEIGHT
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.randint(0, 1 << SORT_BITS, (r,), generator=g, device=dev, dtype=torch.int32)
+    want = torch.argsort(keys & ((1 << SORT_BITS) - 1), stable=True)
+    if not torch.equal(radix_argsort(keys).long(), want):
+        raise AssertionError("radix_argsort differs from a stable argsort")
+    # the path tracer's sort payload: o, d, radiance, throughput; state, pixel, flags
+    floats = [torch.rand((r, 3), generator=g, device=dev) for _ in range(4)]
+    ints = [torch.randint(0, 1 << 32, (r,), generator=g, device=dev),
+            torch.arange(r, device=dev), torch.randint(0, 8, (r,), generator=g, device=dev)]
+    cols = (keys, *floats, *ints)
+    out = sort_rays_by_key(keys, cols)
+    if not torch.equal(out[0], torch.sort(keys).values):
+        raise AssertionError("sort_rays_by_key: the keys are not sorted")
+    pixel = out[6]
+    for got, col in zip(out, cols):
+        if not torch.equal(got, col[pixel]):
+            raise AssertionError("sort_rays_by_key: a payload row left its key")
+    radix_ms = cuda_time_ms(lambda: radix_argsort(keys), 10)
+    payload_ms = cuda_time_ms(lambda: sort_rays_by_key(keys, cols[1:]), 10)
+    sort_ms = cuda_time_ms(lambda: torch.sort(keys), 10)
+    pt_sort = None if frame_profile is None else frame_profile["passes"].get("pt/sort")
+    log(f"# sorts of {r} keys in {SORT_BITS} bits: radix_argsort {radix_ms:.4f} ms (equal to a "
+        f"stable argsort), sort_rays_by_key with 4 float3 and 3 int64 columns {payload_ms:.4f} "
+        f"ms, one torch.sort {sort_ms:.4f} ms; the unsharded frame's pt/sort "
+        f"{'not traced' if pt_sort is None else f'{pt_sort:.2f} ms'} (one sort a bounce); "
+        f"on {card}")
+    return dict(radix_ms=radix_ms, sort_rays_ms=payload_ms, torch_sort_ms=sort_ms,
+                pt_sort_ms=pt_sort)
+
+
+def phase_shard_small(db, cam, dev, card):
+    """Phase 22: dryrun_multichip over the card listed SHARDS times;
+    PathTracerPipeline(shard_devices=-1) wraps its tracer only with more
+    than one card; the Cornell box at 64x64 over a mixed mesh [card, CPU]
+    against the CPU-only render (SMALL_RMSE; the CPU shard's pixels equal
+    the CPU-only render's)."""
+    import torch
+
+    from idkengine_tpu_torch.parallel.dryrun import build_small_pt, dryrun_multichip
+    from idkengine_tpu_torch.parallel.shard import Mesh, ShardedPathTracer
+    from idkengine_tpu_torch.render import PathTracerPipeline, PtPipelineSettings
+
+    t0 = time.perf_counter()
+    out = dryrun_multichip(mesh=Mesh((dev,) * SHARDS))
+    log(f"# dry run over {SHARDS} shards on {dev}: {time.perf_counter() - t0:.1f} s; on {card}")
+    pipe = PathTracerPipeline(db, WIDTH, HEIGHT, main_settings(),
+                              PtPipelineSettings(shard_devices=-1, denoise_at_samples=2),
+                              device=dev)
+    wrapped = isinstance(pipe.pt, ShardedPathTracer)
+    if wrapped != (torch.cuda.device_count() > 1):
+        raise AssertionError(f"shard_devices=-1 on {torch.cuda.device_count()} card(s): "
+                             f"wrapped {wrapped}")
+    img = pipe.render_frame(cam)
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("shard_devices=-1 pipeline frame is not a finite image")
+    del pipe
+    pt, box_cam = build_small_pt(64, 64, device=dev)
+    img = ShardedPathTracer(pt, Mesh((dev, "cpu"))).render_frame(box_cam).cpu()
+    ref = build_small_pt(64, 64, device="cpu")[0].render_frame(box_cam)
+    rmse = torch.sqrt(torch.mean((img - ref) ** 2)).item()
+    cpu_half = torch.equal(img[32:], ref[32:])
+    log(f"# shard_devices=-1 on {torch.cuda.device_count()} card(s): wrapped {wrapped}; mixed "
+        f"mesh [{dev}, cpu], Cornell box 64x64: against the CPU-only render RMSE {rmse:.3g} "
+        f"(limit {SMALL_RMSE}), the CPU shard's rows equal: {cpu_half}")
+    if not (rmse <= SMALL_RMSE and cpu_half):
+        raise AssertionError("the mixed mesh's frame disagrees with the CPU-only render")
+    return out
+
+
 def main():
     import torch
 
@@ -2988,7 +3214,8 @@ def main():
     timings, batches = phase_compare(scene, cam, pt, dev, card)
     launches, factor_frame = {}, None
     launches["pathtracer"], factor_frame = phase_frame(pt, cam, dev, card)
-    phase5 = dict(image=pt.image().clone(), frames=pt.accumulated_samples, ms=factor_frame["ms"])
+    phase5 = dict(image=pt.image().clone(), frames=pt.accumulated_samples, ms=factor_frame["ms"],
+                  launches=launches["pathtracer"])
     del pt
     phase_small_reference(dev)
 
@@ -3020,9 +3247,7 @@ def main():
     log(f"# phases 1-14 took {time.perf_counter() - t_start:.1f} s")
     caps, capped = phase_capped(scene, batches, timings, card)
     timings.update(capped)
-    del batches
     launches.update(phase_capped_frames(db, scene, cam, dev, card, caps, phase5))
-    del phase5
     torch.cuda.empty_cache()
     log(f"# phases 1-16 took {time.perf_counter() - t_start:.1f} s")
     launches.update(phase_deferred_passes(textured_db, cam, dev, card, timings))
@@ -3031,7 +3256,6 @@ def main():
     log(f"# phases 1-17 took {time.perf_counter() - t_start:.1f} s")
     phase_small_passes(dev, args.seed)
     log(f"# phases 1-18 took {time.perf_counter() - t_start:.1f} s")
-    del db, scene
     torch.cuda.empty_cache()
     t_dyn = time.perf_counter()
     dyn_db, build_s = dynamic_scene(dev, args.seed)
@@ -3050,7 +3274,17 @@ def main():
     del textured_first
     phase_small_engine(dev, args.seed)
     log(f"# phase 21 took {time.perf_counter() - t_app:.1f} s")
-    log(f"# phases 1-21 took {time.perf_counter() - t_start:.1f} s (the run's wall time)")
+    t_shard = time.perf_counter()
+    launches["sharded"], _, spt = phase_sharded_frame(db, scene, cam, dev, card, phase5)
+    del phase5
+    _, whole = phase_shard_parts(spt, cam, dev, card)
+    del spt
+    phase_shard_traces(scene, batches, dev, card)
+    del batches
+    phase_sorts(dev, card, args.seed, whole)
+    phase_shard_small(db, cam, dev, card)
+    log(f"# phase 22 took {time.perf_counter() - t_shard:.1f} s")
+    log(f"# phases 1-22 took {time.perf_counter() - t_start:.1f} s (the run's wall time)")
 
     kernels = []
     for name, where in KERNELS_WHERE.items():

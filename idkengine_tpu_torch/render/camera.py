@@ -103,8 +103,10 @@ class Camera:
 
 
 def generate_rays(params: dict, width: int, height: int, jitter: torch.Tensor,
-                  lens_u: torch.Tensor | None = None, fused: bool = False):
-    """Primary ray batch (R=W*H,3) on jitter's device, ray i for pixel i.
+                  lens_u: torch.Tensor | None = None, fused: bool = False,
+                  pixels: torch.Tensor | None = None):
+    """Primary ray batch (R=W*H,3) on jitter's device, ray i for pixel i;
+    or, with `pixels` (R,) pixel indices, ray i for pixel pixels[i].
     jitter: (2,) or (R,2) subpixel offset in [0,1); lens_u: (R,2) uniforms
     for thin-lens DoF or None.
 
@@ -122,7 +124,7 @@ def generate_rays(params: dict, width: int, height: int, jitter: torch.Tensor,
     dev = jitter.device
     vec = {k: torch.as_tensor(params[k], dtype=torch.float32, device=dev)
            for k in ("origin", "forward", "right", "up")}
-    px = torch.arange(width * height, device=dev)
+    px = torch.arange(width * height, device=dev) if pixels is None else pixels
     x = (px % width).to(torch.float32) + jitter[..., 0]
     y = torch.div(px, width, rounding_mode="floor").to(torch.float32) + jitter[..., 1]
     if fused:

@@ -255,6 +255,11 @@ class PathTracer:
 
     Equivalent in role to PathTracer.cs + PathTracerPipeline.cs."""
 
+    # the device state _render_sample reads; a sharded tracer holds a copy
+    # of it on each other device (parallel/shard.py)
+    DEVICE_STATE = ("scene", "instances", "lights", "mats", "env_map", "_env_tables",
+                    "_attr_base", "_attr_surf", "_attr_ext", "_sky_zenith", "_sky_horizon")
+
     def __init__(self, scene: SceneArrays, materials: dict, lights: dict,
                  width: int, height: int, settings: PathTracerSettings | None = None,
                  env_map=None, instances=None, inst_attr_srcs=None, slot_shading=None, *,
@@ -571,10 +576,16 @@ class PathTracer:
             return one(scene, o, d, t_max), None
         return closest, occluded
 
-    def _render_sample(self, cam_params: dict, frame: int, rate_depth=None):
+    def _render_sample(self, cam_params: dict, frame: int, rate_depth=None, pixels=None):
+        """One sample of the frame: (radiance, albedo, normal, depth) in
+        pixel order and the rays traced (a device scalar). `pixels`
+        (start, stop) renders only that range of pixel indices, each ray
+        keyed, generated and traced as in the whole frame (a shard,
+        parallel/shard.py); rate_depth is the whole frame's."""
         s = self.settings
         w, h = self.width, self.height
-        r = w * h
+        p0, p1 = (0, w * h) if pixels is None else pixels
+        r = p1 - p0
         dev = self.device
         lights, mats = self.lights, self.mats
         use_surf = self._has_textures or self._has_normal_maps
@@ -582,12 +593,12 @@ class PathTracer:
         closest, occluded_fn = self._trace_functions()
         env_tables = self._env_tables
 
-        pixel_of = torch.arange(r, device=dev)  # ray i belongs to pixel pixel_of[i]
+        pixel_of = torch.arange(p0, p1, device=dev)  # ray i belongs to pixel pixel_of[i]
         state = rng.init_state(pixel_of, frame)
         # subpixel jitter + thin lens
         state, u_pix = rng.uniform2(state)
         state, u_lens = rng.uniform2(state)
-        o, d = generate_rays(cam_params, w, h, u_pix, u_lens, fused=True)
+        o, d = generate_rays(cam_params, w, h, u_pix, u_lens, fused=True, pixels=pixel_of)
 
         radiance = torch.zeros((r, 3), device=dev)
         throughput = torch.ones((r, 3), device=dev)
@@ -610,7 +621,7 @@ class PathTracer:
             spread = (2.0 * torch.linalg.vector_norm(up) / h).expand(r).clone()
         # per-pixel bounce budget (the adaptive classifier's output)
         rd = (None if rate_depth is None else
-              torch.as_tensor(rate_depth, device=dev).reshape(r).to(torch.int64))
+              torch.as_tensor(rate_depth).reshape(w * h)[p0:p1].to(dev, torch.int64))
         # with env NEE on, NEE owns the diffuse direct env term
         env_owns = s.env_nee and env_tables is not None
 
@@ -857,7 +868,7 @@ class PathTracer:
 
         if s.do_ray_sorting and s.ray_depth > 1:
             # back to pixel order
-            radiance = torch.empty_like(radiance).index_copy_(0, pixel_of, radiance)
+            radiance = torch.empty_like(radiance).index_copy_(0, pixel_of - p0, radiance)
         return radiance, aov_albedo, aov_normal, aov_depth, rays_traced
 
     # ----------------------------------------------------------------
@@ -867,6 +878,11 @@ class PathTracer:
 
         rate_depth: optional (H*W,) int per-pixel bounce budget, in pixel
         order (the adaptive classifier's output)."""
+        return self._render_frame(self._render_sample, camera, rate_depth)
+
+    def _render_frame(self, sample, camera: Camera, rate_depth=None) -> torch.Tensor:
+        """render_frame with `sample` in the place of _render_sample (same
+        arguments and outputs; the sharded sample of parallel/shard.py)."""
         s = self.settings
         if (s.use_env_map and s.env_nee and self.env_map is not None
                 and self._env_tables is None):
@@ -876,8 +892,7 @@ class PathTracer:
         cam_params = camera.ray_params(self.width, self.height)
         rays = torch.zeros((), dtype=torch.int64, device=self.device)
         for _ in range(s.spp_per_frame):
-            radiance, alb, nrm, dep, nrays = self._render_sample(cam_params, self._frame,
-                                                                 rate_depth)
+            radiance, alb, nrm, dep, nrays = sample(cam_params, self._frame, rate_depth)
             n = self.accumulated_samples
             self.accum = (self.accum * n + radiance) / (n + 1)
             lum = radiance[:, 0] * 0.2126 + radiance[:, 1] * 0.7152 + radiance[:, 2] * 0.0722

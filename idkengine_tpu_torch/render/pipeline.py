@@ -17,7 +17,8 @@ card unless the caller asks for the CPU, and the scene must lie there.
 Path-tracer mode (ref: PathTracerPipeline.cs): accumulate samples →
 à-trous denoise once `denoise_at_samples` are in → bloom → AgX tonemap;
 with `adaptive_rate` the rate classifier sets next frame's per-pixel
-bounce budget. Multi-device sharding raises NotImplementedError.
+bounce budget; with `shard_devices` each sample's pixels are split over
+devices (parallel/shard.py: ShardedPathTracer).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 from torch.profiler import record_function
 
 from ..ops.packet_trace import trace_any, trace_closest
+from ..parallel.shard import ShardedPathTracer, make_mesh
 from ..utils import mathutil as mu
 from ..utils.compression import decompress_normal
 from . import adaptive as adaptive_mod
@@ -367,18 +369,28 @@ class PtPipelineSettings:
     # adaptive bounce budget from the rate classifier (render/adaptive.py):
     # smooth tiles end their paths earlier next frame
     adaptive_rate: bool = False
-    shard_devices: int = 0  # only 0 (one device) is ported
+    # devices the path tracer's rays are split over (parallel/shard.py): 0
+    # one, n the first n of the pipeline's device type, -1 every visible
+    # card (one device on the CPU)
+    shard_devices: int = 0
     use_bloom: bool = True
     bloom: bloom_mod.BloomSettings = field(default_factory=bloom_mod.BloomSettings)
     tonemap: tonemap_mod.TonemapSettings = field(default_factory=tonemap_mod.TonemapSettings)
     denoise: denoise_mod.DenoiseSettings = field(default_factory=denoise_mod.DenoiseSettings)
 
 
-def _refuse_pt_settings(s: PtPipelineSettings):
-    if s.shard_devices != 0:
-        raise NotImplementedError("PtPipelineSettings.shard_devices!=0 is not ported")
+def _check_pt_settings(s: PtPipelineSettings):
+    if s.shard_devices < -1:
+        raise ValueError(f"shard_devices must be -1, 0 or a device count, got {s.shard_devices}")
     if s.output not in _PT_OUTPUTS:
         raise ValueError(f"unknown output {s.output!r}; one of {_PT_OUTPUTS}")
+
+
+def _shard_count(shard_devices: int, device: torch.device) -> int:
+    """Devices of PtPipelineSettings.shard_devices on `device`'s type."""
+    if shard_devices == -1:
+        return torch.cuda.device_count() if device.type == "cuda" else 1
+    return max(shard_devices, 1)
 
 
 class PathTracerPipeline:
@@ -390,7 +402,7 @@ class PathTracerPipeline:
                  settings: PtPipelineSettings | None = None, env_map=None, *,
                  device="cuda"):
         self.settings = settings or PtPipelineSettings()
-        _refuse_pt_settings(self.settings)
+        _check_pt_settings(self.settings)
         if scene_db.device_scene is None:
             raise ValueError("build the scene database before making its pipeline")
         self.db = scene_db
@@ -399,6 +411,9 @@ class PathTracerPipeline:
                              env_map=env_map, instances=scene_db.instance_set(),
                              inst_attr_srcs=scene_db._inst_attr_srcs,
                              slot_shading=scene_db.slot_shading(), device=device)
+        n = _shard_count(self.settings.shard_devices, self.pt.device)
+        if n > 1:
+            self.pt = ShardedPathTracer(self.pt, make_mesh(n, device=self.pt.device.type))
         self.width, self.height = width, height
         self._rate_depth = None
 
@@ -410,7 +425,7 @@ class PathTracerPipeline:
         """Adds a frame's samples; returns the (H,W,3) [0,1] image of the
         chosen output."""
         s = self.settings
-        _refuse_pt_settings(s)
+        _check_pt_settings(s)
         h, w = self.height, self.width
         # each pass is a named range for torch.profiler
         with record_function("pt_sample"):

@@ -1,0 +1,1 @@
+from . import compression, mathutil, rng, sorting  # noqa: F401

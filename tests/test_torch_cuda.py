@@ -1176,3 +1176,89 @@ def test_async_atlas_write_on_card(dev, tmp_path):
     pt._frame = 0
     img = pt.render_frame(cam).cpu().numpy()
     assert float(np.sqrt(np.mean((img - ref) ** 2))) <= 1e-3
+
+
+def test_sharded_pathtracer_on_card_matches_unsharded(dev, scenes):
+    """ShardedPathTracer over the card listed four times: each frame equal
+    to the unsharded card frame on every pixel, four times its launches;
+    the instanced scene's two-level traces likewise."""
+    from idkengine_tpu_torch.parallel.shard import Mesh, ShardedPathTracer
+
+    db, sc, _ = scenes
+    cam = Camera(position=np.array([0, 3, 24], np.float32), yaw=-90.0, fov_y=65.0)
+    settings = PathTracerSettings(ray_depth=2, russian_roulette=False, do_ray_sorting=True)
+    lights = dict(count=1, pos=[[0.0, 10.5, 0.0]], radius=[0.8], radiance=[[40.0, 38.0, 35.0]])
+
+    def tracer():
+        return PathTracer(sc, db.materials.soa(), lights, 96, 54, settings, device=dev)
+
+    ref, spt = tracer(), ShardedPathTracer(tracer(), Mesh((dev,) * 4))
+    for _ in range(2):
+        kern.reset_launch_counts()
+        want = ref.render_frame(cam)
+        n = kern.trace_closest.launches
+        got = spt.render_frame(cam)
+        assert kern.trace_closest.launches == 5 * n
+        assert torch.equal(got, want)
+    assert torch.equal(spt.variance(), ref.variance())
+    idb = _instanced_db(dev)
+    pts = [PathTracer(idb.device_scene, idb.materials.soa(), idb.lights.soa(), 48, 48,
+                      PathTracerSettings(ray_depth=2, sky_strength=0.0),
+                      instances=idb.instance_set(), inst_attr_srcs=idb._inst_attr_srcs,
+                      device=dev) for _ in range(2)]
+    spt = ShardedPathTracer(pts[1], Mesh((dev,) * 4))
+    assert torch.equal(spt.render_frame(_instanced_cam()), pts[0].render_frame(_instanced_cam()))
+
+
+def test_mixed_mesh_on_card_matches_cpu(dev):
+    """A mesh of the card and the CPU: the tracer's state copied to the CPU,
+    the halves gathered on the card; the card's rows equal the card-only
+    frame's, the CPU's rows the CPU-only frame's."""
+    from idkengine_tpu_torch.parallel.dryrun import build_small_pt
+    from idkengine_tpu_torch.parallel.shard import Mesh, ShardedPathTracer
+
+    pt, cam = build_small_pt(64, 64, device=dev)
+    spt = ShardedPathTracer(pt, Mesh((dev, "cpu")))
+    img = spt.render_frame(cam)
+    assert img.is_cuda
+    card = build_small_pt(64, 64, device=dev)[0].render_frame(cam).cpu()
+    cpu = build_small_pt(64, 64, device="cpu")[0].render_frame(cam)
+    assert torch.equal(img[:32].cpu(), card[:32]) and torch.equal(img[32:].cpu(), cpu[32:])
+    assert float(torch.sqrt(torch.mean((img.cpu() - cpu) ** 2))) <= 1e-3
+
+
+def test_shard_packet_on_card_bit_equal(dev, scenes):
+    """shard_packet_closest / shard_packet_any over the card listed four
+    times (and three, uneven) bit-equal to the unsharded kernels."""
+    from idkengine_tpu_torch.parallel.dryrun import check_sharded_traces, packet_rays
+    from idkengine_tpu_torch.parallel.shard import Mesh
+
+    _, sc, _ = scenes
+    for shards, n in ((4, 1 << 16), (3, 50_001)):
+        kern.reset_launch_counts()
+        out = check_sharded_traces(Mesh((dev,) * shards), sc, *packet_rays(sc, n))
+        assert out["hits"] > 0 and kern.trace_closest.launches == 1 + shards
+
+
+def test_device_sorts_on_card(dev):
+    """radix_argsort equals a stable argsort of the low bits; sort_rays_by_key
+    keeps each payload row with its key."""
+    from idkengine_tpu_torch.ops.device_sort import radix_argsort, sort_rays_by_key
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    keys = torch.randint(0, 1 << 24, (1 << 20,), generator=g, device=dev, dtype=torch.int32)
+    want = torch.argsort(keys & ((1 << 18) - 1), stable=True)
+    assert torch.equal(radix_argsort(keys).long(), want)
+    ids = torch.arange(keys.shape[0], device=dev)
+    vals = torch.rand((keys.shape[0], 3), generator=g, device=dev)
+    k, v, i = sort_rays_by_key(keys, (keys, vals, ids))
+    assert torch.equal(k, torch.sort(keys).values)
+    assert torch.equal(v, vals[i]) and torch.equal(keys[i], k)
+
+
+def test_dryrun_small_on_card(dev):
+    from idkengine_tpu_torch.parallel.dryrun import dryrun_multichip
+    from idkengine_tpu_torch.parallel.shard import Mesh
+
+    out = dryrun_multichip(mesh=Mesh((dev,) * 4), small=True)
+    assert out["pixels_differ"] == 0 and out["rmse"] == 0.0

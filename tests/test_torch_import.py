@@ -8,10 +8,14 @@ import re
 import subprocess
 import sys
 
+import pytest
+import torch
+
 import idkengine_tpu_torch
 from idkengine_tpu_torch.bvh import builder
 from idkengine_tpu_torch.engine import Engine
 from idkengine_tpu_torch.ops import packet_trace, two_phase, voxel_scatter
+from idkengine_tpu_torch.parallel import dryrun, shard
 from idkengine_tpu_torch.render import DeferredPipeline, PathTracer, PathTracerPipeline
 from idkengine_tpu_torch.render.shadowmap import PointShadowManager, build_point_shadow
 from idkengine_tpu_torch.render.vxgi import VoxelGrid
@@ -45,7 +49,9 @@ def test_import_leaves_jax_out():
             "import idkengine_tpu_torch.scene.meshopt, idkengine_tpu_torch.scene.gltf\n"
             "import idkengine_tpu_torch.scene.async_io, idkengine_tpu_torch.recorder\n"
             "import idkengine_tpu_torch.profiling, idkengine_tpu_torch.engine\n"
-            "import idkengine_tpu_torch.viewer\n"
+            "import idkengine_tpu_torch.viewer, idkengine_tpu_torch.parallel\n"
+            "import idkengine_tpu_torch.parallel.shard, idkengine_tpu_torch.parallel.dryrun\n"
+            "import idkengine_tpu_torch.ops.device_sort, idkengine_tpu_torch.utils.sorting\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'idkengine_tpu')]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": REPO}
@@ -97,3 +103,32 @@ def test_entry_points_default_to_the_card():
         assert inspect.signature(fn).parameters[name].default == "cuda", fn
     for probe in PROBES:
         assert inspect.signature(probe.main).parameters["device"].default == "cuda", probe
+    # the mesh of the sharded tracer and of the dry run: the cards unless asked
+    for fn in (shard.make_mesh, dryrun.dryrun_multichip, dryrun.build_small_pt,
+               dryrun.build_nontoy_pt):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def test_default_mesh_takes_no_cpu():
+    """make_mesh on a machine without enough cards raises, and so do
+    dryrun_multichip and a pipeline sharded on the card through it: nothing
+    falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    for call in (lambda: shard.make_mesh(), lambda: shard.make_mesh(2),
+                 lambda: dryrun.dryrun_multichip(2)):
+        with pytest.raises(RuntimeError, match="CUDA devices"):
+            call()
+
+
+def test_every_module_has_a_counterpart():
+    """Each module file of the JAX package has one in the port."""
+    jax_pkg = os.path.join(REPO, "idkengine_tpu")
+    missing = []
+    for root, _dirs, files in os.walk(jax_pkg):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), jax_pkg)
+                if not os.path.isfile(os.path.join(PKG, rel)):
+                    missing.append(rel)
+    assert not missing, missing

@@ -175,10 +175,13 @@ def test_two_phase_pipeline_matches(pipelines, output):
 
 @pytest.mark.parametrize("what", ["shard_devices", "output"])
 def test_unported_settings_raise(pipelines, what):
+    """Settings outside the JAX package's range raise: a shard count below
+    -1 (every other value is ported, tests/test_torch_multichip.py), an
+    unknown output."""
     _, one, _ = pipelines
-    with pytest.raises(NotImplementedError if what != "output" else ValueError):
+    with pytest.raises(ValueError):
         if what == "shard_devices":
-            PathTracerPipeline(one.db, W, H, settings=PtPipelineSettings(shard_devices=-1),
+            PathTracerPipeline(one.db, W, H, settings=PtPipelineSettings(shard_devices=-2),
                                device="cpu")
         else:
             PathTracerPipeline(one.db, W, H, settings=PtPipelineSettings(output="depth"),
