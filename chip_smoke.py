@@ -12,7 +12,10 @@ Phases (any failure raises and ends the run with a nonzero exit code):
   3. build the 2.8M-triangle atrium with the benchmark's build settings,
      lights and camera (SceneDatabase.build on the card); the trace
      kernel's 4-wide table: size, depth, build time, stack; the steps
-     kernel's threaded records: size, build time; the leaf bits;
+     kernel's threaded records: size, build time; the leaf bits; the
+     build's device flatten against the host flatten, bit-equal on every
+     field, each timed, the bytes each puts on the card, the build's
+     seconds through each; EPO's value and time (phase_flatten);
   4. trace the path-traced frame's ray batches (1920x1080 primary rays;
      shadow rays from their hit points; the frame's first bounce batch)
      with each kernel and with its plain PyTorch version, compare and time
@@ -20,8 +23,12 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      max; rays from the sky pixels' far points apart);
   5. path-traced frame: render through PathTracer at 1920x1080, depth 2, ray
      sorting on, Russian roulette off: one warm-up frame, then timed frames
-     with the kernels' launch counts reset just before; check the image, and
-     check a small render on the card against the same render on the CPU;
+     with the kernels' launch counts reset just before; check the image;
+     one more frame under the profiler, its hand trace kernels bucketed by
+     the call site that launched them as the JAX package buckets its
+     tagged kernels (primary, bounce_closest and nee above 0; with
+     trace_other within 1% of the hand trace kernels' device time); check
+     a small render on the card against the same render on the CPU;
   6. scatter-max: the voxelizer's real updates of the atrium at 256^3
      through the kernel and its plain version, bf16 on and off, compared
      for equality and timed beside `scatter_reduce_`; the grid's zero fill
@@ -33,8 +40,9 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      the rays of one more frame (G-buffer primaries, the voxelizer's and
      the lighting's shadow rays), with each call's time, bound and steps
      per ray; profile one frame (device time of each
-     pass, kernel launches, device busy share); check a small deferred
-     render on the card against the CPU's;
+     pass, kernel launches, device busy share; its untagged traces, any-hit
+     shadow rays included, in trace_other as the JAX package's); check a
+     small deferred render on the card against the CPU's;
   8. two-phase traversal on the main path's ray batches (phase 4's
      primaries and shadow rays, one bounce batch of the path-traced frame):
      phase A and phase B kernels against their plain versions, the
@@ -65,7 +73,9 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      RGBE and read back through load_hdr; PathTracer at 1920x1080, depth 2,
      sorting on, roulette off, env map and env NEE on: one warm-up frame,
      then timed frames beside phase 5's factor-only frame, the launches per
-     frame, one frame under the profiler; the trace calls of one frame,
+     frame, one frame under the profiler (the primaries' alpha re-traces
+     in primary, the env shadow rays' any-hit tails in nee); the trace
+     calls of one frame, with the call-site tags the JAX package gives them,
      each timed through its kernel by what it traces (closest hits, alpha
      re-traces, NEE and env-NEE rounds and tails), and the kernels against
      their plain versions on the first alpha re-trace batch and the env-NEE
@@ -78,6 +88,9 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      p99 steps, t, slot, u, v and occlusion equal on every ray: times,
      bounds at the steps taken, the share of rays the cap stopped, the lane
      utilization of a ray a thread (what a per-lane ray refill could gain);
+     the steps kernel with the same caps (trace_closest_steps with
+     max_steps) on the primaries, steps and hits equal on every ray, timed
+     beside the uncapped steps kernel;
  16. path-traced frames (phase 5's settings) with max_trace_steps at each
      of phase 15's caps and with tile_size = 1920*1080/8, timed with the
      launch counts reset just before; the tiled accumulation bit-equal to
@@ -104,7 +117,8 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      the 4-wide ones through bvh4_child; topology words unchanged; tri_vec
      the slot triangles) and against the host update at the same time
      (UPDATE_TOL); warm CUDA-event times of update_device in parts
-     (transform, level sweeps, record refresh), of the host update and of
+     (transform, level sweeps, record refresh), of the host update (with
+     the device flatten, and with the host flatten after it) and of
      linear-blend skinning over the atrium's vertices (4 of 64 joints a
      vertex, from --seed); on the refitted scene the primaries' kernel
      trace against the plain trace, and a path-traced frame at phase 5's
@@ -261,7 +275,14 @@ ENV_SIZE = (1024, 512)  # the textured frame's env map, width x height
 TEXTURED_CALLS = ("closest", "alpha re-trace 1", "alpha re-trace 2", "NEE round 1",
                   "NEE round 2", "NEE any-hit tail", "env-NEE round 1", "env-NEE round 2",
                   "env-NEE any-hit tail")
+# their call-site tags at bounce 0 (pri becomes bnc after it), as the JAX
+# package tags them (idkengine_tpu/render/pathtracer.py:725, 752, 764)
+TEXTURED_TAGS = ("pri", "pria", "pria", "neea", "neea", "neea", "enva", "enva", "enva")
 PT_RANGES = "pt/"  # PathTracer's profiler ranges (render/pathtracer.py)
+# the JAX package's trace buckets (idkengine_tpu/profiling.py:90-114), and
+# how far their sum may lie from the hand trace kernels' device time
+TRACE_BUCKETS = ("primary", "bounce_closest", "nee", "trace_other")
+BUCKET_SHARE = 0.01
 DYN_TIMES = (0.5, 1.25)  # phase 19's animation times (keyframes at 0, 1, 2 s)
 DYN_SHIFT = (0.6, 0.3, -0.4)  # the root's translation at 1 s, m
 DYN_TURN = 5.0  # the root's turn about y at 1 s, degrees
@@ -331,7 +352,9 @@ def phase_build():
         f"stack frame above")
 
 
-def phase_scene(dev):
+def phase_scene(dev, card=None):
+    """Phase 3: the atrium's build; with `card`, also phase_flatten's
+    measurements. Returns (db, scene, cam)."""
     import numpy as np
 
     from idkengine_tpu_torch.bvh.builder import BuildSettings
@@ -369,7 +392,73 @@ def phase_scene(dev):
         f"{scene.bvh4_child.numel() * 4 / 1e6:.1f} MB; leaf references with "
         f"{scene.bvh4_leaf_bits} count bits (largest leaf "
         f"{int(scene.node_count.max().item())} triangles)")
+    if card is not None:
+        phase_flatten(db, dev, card, t2 - t1)
     return db, scene, cam
+
+
+def phase_flatten(db, dev, card, build_s):
+    """Phase 3's device flatten and EPO at full size: flatten_triangles_device
+    against the host flatten_triangles, bit-equal on every field, each
+    timed warm; the bytes each puts on the card; the static scene's upload
+    (SceneDatabase._upload: flatten, SceneArrays with its node tables)
+    timed through each, and the build's seconds with each (the measured
+    build, and the build less the device upload plus the host upload);
+    EPO's value (SceneMeta.epo) and the time of one more BLAS.epo()."""
+    import numpy as np
+    import torch
+
+    from idkengine_tpu_torch.bvh.flatten import flatten_triangles, flatten_triangles_device
+    from idkengine_tpu_torch.ops.trace import SceneArrays
+
+    args = (db._slot_tri, db._verts, db._indices, db._normals, db._uvs, db._tri_mat)
+    max_leaf = db.build_settings.max_leaf_triangle_count
+
+    def timed(fn):
+        torch_sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch_sync(dev)
+        return out, time.perf_counter() - t0
+
+    host, host_s = timed(lambda: flatten_triangles(*args))
+    flat, dev_s = timed(lambda: flatten_triangles_device(*args, device=dev))
+    for f in ("p0", "e1", "e2", "n_packed", "uv", "mat", "geom_normal"):
+        want = np.asarray(getattr(host, f))
+        got = getattr(flat, f).cpu().numpy()
+        if want.dtype.kind in "iu":
+            want, got = want.astype(np.int64), got.astype(np.int64)
+        if got.shape != want.shape or not np.array_equal(
+                np.ascontiguousarray(got).view(np.uint8), np.ascontiguousarray(want).view(np.uint8)):
+            raise AssertionError(f"flatten_triangles_device's {f} differs from the host flatten's")
+    t = db._slot_tri.shape[0]
+    # the indexed mesh as the device flatten puts it (int32 slots, indices
+    # and materials, float32 vertices, normals, uvs); the de-indexed tables
+    # had they all been made on the host (p0, e1, e2, face normal, the int64
+    # corner normals, uvs, materials, and the kernels' tri_vec)
+    dev_bytes = (4 * t + 4 * db._indices.size + 4 * (db._verts.size + db._normals.size
+                                                     + db._uvs.size) + 4 * db._tri_mat.size)
+    host_bytes = t * (4 * 3 * 4 + 8 * 3 + 4 * 6 + 4 + 4 * 12)
+    del host, flat
+    _, up_host_s = timed(lambda: SceneArrays.from_flat(db._flat, flatten_triangles(*args),
+                                                       max_leaf, dev))
+    _, up_dev_s = timed(lambda: SceneArrays.from_flat(
+        db._flat, flatten_triangles_device(*args, device=dev), max_leaf, dev))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    epo = db.blas.epo()
+    epo_s = time.perf_counter() - t0
+    if not (np.isfinite(db.meta.epo) and epo == db.meta.epo):
+        raise AssertionError(f"SceneMeta.epo {db.meta.epo} is not BLAS.epo() {epo}")
+    log(f"# device flatten of {t} slots: {dev_s * 1e3:.1f} ms (host flatten {host_s * 1e3:.1f} "
+        f"ms, warm), every field bit-equal (p0, e1, e2, n_packed, uv, mat, geom_normal); "
+        f"bytes put on the card {dev_bytes / 1e6:.1f} MB (the host flatten's tables "
+        f"{host_bytes / 1e6:.1f} MB); the static upload through the device flatten "
+        f"{up_dev_s:.2f} s, through the host flatten {up_host_s:.2f} s; SceneDatabase.build "
+        f"{build_s:.2f} s with the device flatten, {build_s - up_dev_s + up_host_s:.2f} s with "
+        f"the host one (the build less the one upload plus the other); EPO {epo:.4f} "
+        f"(SceneMeta.epo, each build) in {epo_s:.2f} s on the host "
+        f"({os.cpu_count()} cores); on {card}")
 
 
 def torch_sync(dev):
@@ -771,9 +860,9 @@ def record_deferred_traces(pipe, cam, render=None):
     def recording(kind):
         fn = getattr(pipeline_mod, kind)
 
-        def run(scene, o, d, t_max):
+        def run(scene, o, d, t_max, **kw):
             calls.append((_calling_pass(), kind, scene, o, d, t_max))
-            return fn(scene, o, d, t_max)
+            return fn(scene, o, d, t_max, **kw)
         return run
 
     saved = pipeline_mod.trace_closest, pipeline_mod.trace_any
@@ -827,13 +916,19 @@ def profile_frame(render, title, is_pass):
 
     The profiler gives a pass the kernels of the PyTorch ops inside it; the
     hand kernels, launched through ctypes outside any op, join no pass and
-    are listed apart. Where the profiler also traces a pass's span on the
-    device (from its first to its last kernel, the hand kernels and idle
-    gaps included), that span is printed beside it. Returns the wall and
-    busy ms and each pass's device ms (None where no device time was
-    traced)."""
+    are listed apart, each with the call-site range it was launched in
+    (profiling.attribute: the trace entry points' pt_closest_<tag> /
+    pt_any_<tag>) and the bucket the JAX package's rule gives that range;
+    the buckets of the whole frame follow (profiling.bucket_times). Where
+    the profiler also traces a pass's span on the device (from its first
+    to its last kernel, the hand kernels and idle gaps included), that span
+    is printed beside it. Returns the wall and busy ms, each pass's device
+    ms (None where no device time was traced), the unrounded buckets and
+    attribute's list."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from idkengine_tpu_torch import profiling
 
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
@@ -843,7 +938,8 @@ def profile_frame(render, title, is_pass):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == cuda and not is_pass(e.key)]
+    ranges = {e.key for e in events if e.device_type == cpu}  # their device spans are no kernels
+    kernels = [e for e in events if e.device_type == cuda and e.key not in ranges]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     if busy_ms <= 0:
@@ -861,16 +957,73 @@ def profile_frame(render, title, is_pass):
                 f"({e.device_time_total / 1e3 / busy_ms * 100:.1f}% of busy; span "
                 f"{'not traced' if span is None else f'{span:.2f} ms'}, "
                 f"host {e.cpu_time_total / 1e3:.2f} ms)")
-    for e in kernels:
-        if any(name in e.key for name in HAND_KERNELS):
-            log(f"#   hand kernel, in no pass: {e.self_device_time_total / 1e3:.2f} ms in "
-                f"{e.count} launches: {e.key[:60]}")
+    sites = profiling.attribute(prof.events())
+    by_site = {}
+    for name, site, ms in sites:
+        if any(k in name for k in HAND_KERNELS):
+            key = (site, name.replace("(anonymous namespace)::", "").replace("void ", "")
+                   .split("(")[0])
+            n, total = by_site.get(key, (0, 0.0))
+            by_site[key] = (n + 1, total + ms)
+    for (site, kernel), (n, ms) in sorted(by_site.items(), key=lambda kv: -kv[1][1]):
+        bucket = (profiling.range_bucket(site) if site is not None
+                  else profiling.bucket(kernel))
+        log(f"#   hand kernel {kernel}: {ms:.2f} ms in {n} launches, call site "
+            f"{site or 'none'} -> {bucket}")
+    buckets = profiling.bucket_times(sites, ndigits=None)
+    log(f"# {title}'s buckets (profiling.capture_device_profile's, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in buckets.items()))
     log("# most device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"#   {e.self_device_time_total / 1e3:.2f} ms in {e.count} launches: {e.key[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
                 passes={e.key: e.device_time_total / 1e3 for e in events
-                        if is_pass(e.key) and e.device_type == cpu})
+                        if is_pass(e.key) and e.device_type == cpu},
+                buckets=buckets, sites=sites)
+
+
+def hand_trace_ms(prof, site=None) -> float:
+    """Device ms of the hand trace kernels in profile_frame's result, all
+    of them or those launched in call-site range `site`."""
+    from idkengine_tpu_torch.profiling import HAND_TRACE_KERNELS
+
+    return sum(ms for name, s, ms in prof["sites"]
+               if any(k in name for k in HAND_TRACE_KERNELS) and (site is None or s == site))
+
+
+def check_trace_buckets(prof, what, positive=("primary", "bounce_closest", "nee")):
+    """The frame's trace buckets: each of `positive` above 0 ms, and with
+    trace_other they sum, within 1%, to the device time of the hand trace
+    kernels in the same profile. Raises otherwise."""
+    if prof is None:
+        raise AssertionError(f"{what}: the profiler traced no device time")
+    by, hand = prof["buckets"], hand_trace_ms(prof)
+    for b in positive:
+        if not by.get(b, 0.0) > 0.0:
+            raise AssertionError(f"{what}: bucket {b} is empty ({by})")
+    total = sum(by.get(b, 0.0) for b in TRACE_BUCKETS)
+    if not abs(total - hand) <= BUCKET_SHARE * hand:
+        raise AssertionError(f"{what}: the trace buckets sum to {total:.3f} ms, the hand trace "
+                             f"kernels take {hand:.3f} ms")
+    log(f"# {what}: " + ", ".join(f"{b} {by.get(b, 0.0):.3f} ms" for b in TRACE_BUCKETS)
+        + f"; sum {total:.3f} ms, the hand trace kernels {hand:.3f} ms (within "
+        f"{BUCKET_SHARE:.0%})")
+
+
+def check_deferred_buckets(prof):
+    """The deferred frame's traces are untagged, as the JAX package's: every
+    hand trace kernel in trace_other, its any-hit shadow rays too (nee,
+    primary and bounce_closest empty). Raises otherwise."""
+    check_trace_buckets(prof, "deferred frame", positive=("trace_other",))
+    tagged = {b: prof["buckets"].get(b, 0.0) for b in ("primary", "bounce_closest", "nee")}
+    if any(tagged.values()):
+        raise AssertionError(f"the deferred frame's untagged traces landed in {tagged}")
+    any_ms = sum(ms for name, _site, ms in prof["sites"]
+                 if "trace_kernel<true>" in name or "trace_capped_kernel<true>" in name)
+    if not any_ms > 0:
+        raise AssertionError("the deferred frame launched no any-hit trace kernel")
+    log(f"# deferred frame: its any-hit trace kernels {any_ms:.3f} ms, in trace_other as the "
+        f"JAX package buckets an untagged any-hit trace (pt_any_*_x)")
 
 
 def phase_small_deferred(dev):
@@ -910,9 +1063,9 @@ def capture_bounce_batch(pt, cam):
 
     calls, fn = [], pathtracer_mod.trace_closest
 
-    def recording(scene, o, d, t_max):
+    def recording(scene, o, d, t_max, **kw):
         calls.append((o, d, t_max))
-        return fn(scene, o, d, t_max)
+        return fn(scene, o, d, t_max, **kw)
 
     pathtracer_mod.trace_closest = recording
     try:
@@ -1475,9 +1628,9 @@ def record_pt_traces(pt, cam, render=None):
     def recording(kind):
         fn = getattr(pathtracer_mod, kind)
 
-        def run(scene, o, d, t_max):
-            calls.append((kind, o, d, t_max))
-            return fn(scene, o, d, t_max)
+        def run(scene, o, d, t_max, tag=""):
+            calls.append((kind, o, d, t_max, tag))
+            return fn(scene, o, d, t_max, tag=tag)
         return run
 
     saved = pathtracer_mod.trace_closest, pathtracer_mod.trace_any
@@ -1490,8 +1643,13 @@ def record_pt_traces(pt, cam, render=None):
     if len(calls) != DEPTH * len(TEXTURED_CALLS):
         raise AssertionError(f"the textured frame made {len(calls)} trace calls, not "
                              f"{DEPTH * len(TEXTURED_CALLS)}")
+    tags = [c[4] for c in calls]
+    want = [t.replace("pri", "bnc") if n >= len(TEXTURED_TAGS) else t
+            for n, t in enumerate(TEXTURED_TAGS * DEPTH)]
+    if tags != want:
+        raise AssertionError(f"the textured frame's call-site tags are {tags}, not {want}")
     return [(kind, f"bounce {n // len(TEXTURED_CALLS)} {TEXTURED_CALLS[n % len(TEXTURED_CALLS)]}",
-             o, d, t_max) for n, (kind, o, d, t_max) in enumerate(calls)]
+             o, d, t_max) for n, (kind, o, d, t_max, _tag) in enumerate(calls)]
 
 
 def phase_textured(dev, card, seed, factor_frame, timings):
@@ -1561,6 +1719,16 @@ def phase_textured(dev, card, seed, factor_frame, timings):
         f"tonemapped mean {out.mean().item():.5f}")
     prof = profile_frame(lambda: pt.render_frame(cam), "textured frame",
                          lambda k: k.startswith(PT_RANGES))
+    check_trace_buckets(prof, "textured frame")
+    alpha_ms, env_any_ms, env_rounds_ms = (hand_trace_ms(prof, site) for site in (
+        "pt_closest_pria", "pt_any_enva", "pt_closest_enva"))
+    if not (alpha_ms > 0 and env_any_ms > 0):
+        raise AssertionError("the textured frame's primary alpha re-traces or env shadow rays "
+                             "launched no hand kernel in their call-site ranges")
+    log(f"# textured frame: the primaries' alpha re-traces (pt_closest_pria) {alpha_ms:.3f} ms "
+        f"in primary; the env shadow rays' any-hit tail (pt_any_enva) {env_any_ms:.3f} ms in "
+        f"nee; their alpha rounds' closest hits (pt_closest_enva) {env_rounds_ms:.3f} ms in "
+        f"trace_other, where the JAX package's rule puts pt_closest_*_enva")
 
     # each trace call of one frame through its kernel, grouped by what it
     # traces; then the kernels against their plain versions on the new batches
@@ -1745,7 +1913,45 @@ def phase_capped(scene, batches, results, card):
                                          lane_utilization=util,
                                          steps_mean=taken / r, records_read=records,
                                          triangles_read=tris, **m))
+    phase_capped_steps(scene, batches["primary"][1:], caps, results["trace_closest_steps"], card)
     return caps, out
+
+
+def phase_capped_steps(scene, rays, caps, entry, card):
+    """Phase 15's capped steps kernel: trace_closest_steps with max_steps
+    (the JAX trace's cap) against its plain version on phase 4's
+    primaries at each cap, steps and hits bit-equal, timed beside the
+    uncapped steps kernel on the same rays; each cap a batch of `entry`
+    (phase 11's trace_closest_steps)."""
+    import torch
+
+    from idkengine_tpu_torch.ops import packet_trace as kern
+    from idkengine_tpu_torch.ops import trace as plain
+
+    o, d, t_max = rays
+    r = o.shape[0]
+    uncapped_ms = cuda_time_ms(lambda: kern.trace_closest_steps(scene, o, d, t_max), 10)
+    for cap in caps:
+        got, steps = kern.trace_closest_steps(scene, o, d, t_max, max_steps=cap)
+        t0 = time.perf_counter()
+        want, want_steps = plain.trace_closest_steps(scene, o, d, t_max, max_steps=cap)
+        torch_sync(o.device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(steps, want_steps) or int(steps.max().item()) > cap:
+            raise AssertionError(f"capped trace_closest_steps (cap {cap}): steps differ on "
+                                 f"{(steps != want_steps).sum().item()} rays")
+        for k in ("t", "slot", "u", "v"):
+            if not torch.equal(getattr(got, k), getattr(want, k)):
+                raise AssertionError(f"capped trace_closest_steps (cap {cap}): {k} differs")
+        ms = cuda_time_ms(lambda: kern.trace_closest_steps(scene, o, d, t_max, max_steps=cap),
+                          10)
+        stopped = (steps == cap).float().mean().item()
+        log(f"# trace_closest_steps, primary batch ({r} rays), cap {cap}: kernel {ms:.4f} ms "
+            f"(uncapped {uncapped_ms:.4f} ms), plain {plain_ms:.1f} ms; {stopped:.4f} of the "
+            f"rays at the cap; steps, t, slot, u, v equal on every ray; on {card}")
+        entry.setdefault("batches", []).append(dict(
+            batch="primary", cap=cap, rays=r, ms=ms, uncapped_ms=uncapped_ms, plain_ms=plain_ms,
+            at_cap=stopped, max_abs_err=0.0))
 
 
 def phase_capped_frames(db, scene, cam, dev, card, caps, ref):
@@ -2093,6 +2299,17 @@ def phase_dynamics(db, cam, dev, card, seed, frame_ref):
 
     t = DYN_TIMES[-1]
     host_ms = cuda_time_ms(lambda: db.update(t), 2)
+    # the same update with the host flatten in place of the device one
+    from idkengine_tpu_torch.bvh.flatten import flatten_triangles
+    from idkengine_tpu_torch.scene import scene_db as scene_db_mod
+
+    device_flatten = scene_db_mod.flatten_triangles_device
+    scene_db_mod.flatten_triangles_device = lambda *a, device: flatten_triangles(*a)
+    try:
+        host_flatten_ms = cuda_time_ms(lambda: db.update(t), 2)
+    finally:
+        scene_db_mod.flatten_triangles_device = device_flatten
+    db.update(t)
     refitter = db._get_refitter()
     sampled = db.placement_matrices(t)
     verts, normals = db.transform_vertices(*sampled)
@@ -2110,8 +2327,9 @@ def phase_dynamics(db, cam, dev, card, seed, frame_ref):
     log(f"# update_device at full width ({n_verts} vertices, {n_tris} slots, "
         f"{len(refitter.plan.levels)} interior levels; warm, {DYN_REPS} calls each): "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
-        + f"; host update (C++ refit, flatten, upload, 4-wide collapse) {host_ms:.1f} ms; "
-        f"on {card}")
+        + f"; host update (C++ refit, device flatten, upload, 4-wide collapse) {host_ms:.1f} "
+        f"ms, with the host flatten {host_flatten_ms:.1f} ms (after it, in the same run); on "
+        f"{card}")
 
     g = torch.Generator(device=dev).manual_seed(seed)
     joints = torch.randint(0, SKIN_JOINTS, (n_verts, 4), generator=g, device=dev)
@@ -3209,13 +3427,16 @@ def main():
     t_start = time.perf_counter()
     card = phase_card()
     phase_build()
-    db, scene, cam = phase_scene(dev)
+    db, scene, cam = phase_scene(dev, card)
     pt = make_tracer(db, scene, cam, dev)
     timings, batches = phase_compare(scene, cam, pt, dev, card)
     launches, factor_frame = {}, None
     launches["pathtracer"], factor_frame = phase_frame(pt, cam, dev, card)
     phase5 = dict(image=pt.image().clone(), frames=pt.accumulated_samples, ms=factor_frame["ms"],
                   launches=launches["pathtracer"])
+    check_trace_buckets(profile_frame(lambda: pt.render_frame(cam),
+                                      "path-traced frame (phase 5's settings)",
+                                      lambda k: k.startswith(PT_RANGES)), "phase 5's frame")
     del pt
     phase_small_reference(dev)
 
@@ -3225,8 +3446,8 @@ def main():
     timings["scatter_max_dense"] = phase_compare_scatter(db, scene, pipe, dev)
     launches["deferred"] = phase_deferred_frame(pipe, cam, dev, card)
     phase_compare_deferred_traces(pipe, cam, timings, card)
-    profile_frame(lambda: pipe.render_frame(cam), "deferred frame",
-                  lambda key: key.startswith("deferred/"))
+    check_deferred_buckets(profile_frame(lambda: pipe.render_frame(cam), "deferred frame",
+                                         lambda key: key.startswith("deferred/")))
     phase_small_deferred(dev)
     del pipe
     torch.cuda.empty_cache()

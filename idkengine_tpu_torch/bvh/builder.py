@@ -6,7 +6,8 @@ The library is compiled from the port's own copy of the C++ core
 repository's ignored `build/` directory. There is no numpy fallback builder:
 without a C++ compiler the build raises.
 
-A BLAS keeps its native tree for `refit` (the C++ `blas_refit`) and for the
+A BLAS keeps its native tree for `refit` (the C++ `blas_refit`), for its
+quality metric `epo` (the C++ `blas_epo`) and for the
 host queries of picking and collision (`intersect_ray`, `intersect_box`,
 `sphere_closest_triangle`: the C++ `blas_intersect_ray`,
 `blas_intersect_box`, `sphere_vs_triangles`; no numpy versions); `TLAS`
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 from dataclasses import dataclass
 
 import numpy as np
@@ -93,6 +95,8 @@ def _load():
     lib.sphere_vs_triangles.restype = ctypes.c_int
     lib.sphere_vs_triangles.argtypes = [f32p, u32p, u32p, ctypes.c_uint32, f32p, ctypes.c_float,
                                         f32p, f32p]
+    lib.blas_epo.restype = ctypes.c_float
+    lib.blas_epo.argtypes = [ctypes.c_void_p, f32p, u32p, ctypes.c_uint32, ctypes.c_uint32]
     lib.bvh_thread_links.restype = None
     lib.bvh_thread_links.argtypes = [ctypes.c_void_p, ctypes.c_uint32, i64p, i64p]
     lib.bvh_collapse4.restype = ctypes.c_int64
@@ -100,6 +104,16 @@ def _load():
         ctypes.c_void_p, i64p, ctypes.POINTER(ctypes.c_int32)]
     _lib = lib
     return lib
+
+
+def native_available() -> bool:
+    """Whether the C++ core builds and loads here (g++ present). The port
+    has no fallback builder: without it a BLAS raises."""
+    try:
+        _load()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _f32p(a):
@@ -192,6 +206,17 @@ class BLAS:
         self.vertices = np.ascontiguousarray(vertices, dtype=np.float32).reshape(-1, 3)
         _load().blas_refit(self._handle, _f32p(self.vertices), _u32p(self.indices))
         self._sync_from_native()
+
+    def epo(self, max_nodes: int = 8192) -> float:
+        """Global EPO quality metric (ref: BLAS.cs ComputeGlobalEPO:536-627,
+        Aila et al. 2013): area of geometry overlapping node boxes outside
+        their own subtrees, normalized by total triangle area. Exact for
+        trees up to max_nodes nodes, a strided estimate above; the C++
+        core's `blas_epo` on the host, its worker threads summed in a fixed
+        order."""
+        return float(_load().blas_epo(
+            self._handle, _f32p(self.vertices), _u32p(self.indices),
+            np.uint32(self.indices.shape[0]), np.uint32(max_nodes)))
 
     # -- host queries (picking, collision), in the C++ core ---------------
     def intersect_ray(self, origin, direction, t_max=3.4e38):

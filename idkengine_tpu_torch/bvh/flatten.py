@@ -1,12 +1,14 @@
-"""Flatten a built BVH + scene geometry into SoA arrays (numpy).
-Counterpart: idkengine_tpu/bvh/flatten.py.
+"""Flatten a built BVH + scene geometry into SoA arrays (numpy, or tensors
+on a device). Counterpart: idkengine_tpu/bvh/flatten.py.
 
 `thread_bvh` and `flatten_triangles` are the JAX package's numpy functions,
-carried over. `bvh2_nodes` (the binary layout of phase A), `thread_nodes`
-(the threaded records of the steps kernel) and `bvh4_nodes` (the 4-wide
-layout of the trace kernel) add the CUDA kernels' node tables, derived from
-the threaded arrays alone so that any threaded scene (the port's own build
-or one handed over from the JAX package) can be traced on the card.
+carried over; `flatten_triangles_device` is its device flatten, in torch on
+the build's device, bit-equal to `flatten_triangles`. `bvh2_nodes` (the
+binary layout of phase A), `thread_nodes` (the threaded records of the
+steps kernel) and `bvh4_nodes` (the 4-wide layout of the trace kernel) add
+the CUDA kernels' node tables, derived from the threaded arrays alone so
+that any threaded scene (the port's own build or one handed over from the
+JAX package) can be traced on the card.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.intersect import cross3
+from ..ops.intersect import cross3, fma
 from ..utils import compression as comp
 from . import builder as _builder
 
@@ -71,7 +73,8 @@ def thread_bvh(nodes: np.ndarray) -> tuple[FlatBvh, np.ndarray]:
 
 @dataclass
 class FlatTriangles:
-    """Per-leaf-slot triangle SoA: geometry + shading attributes."""
+    """Per-leaf-slot triangle SoA: geometry + shading attributes (numpy
+    arrays, or tensors on a device from flatten_triangles_device)."""
 
     p0: np.ndarray  # (T,3) f32
     e1: np.ndarray  # (T,3) f32
@@ -101,11 +104,8 @@ def flatten_triangles(
     n_packed = np.stack(
         [comp.compress_normal(nrm[:, k]) for k in range(3)], axis=1
     ).astype(np.uint32)
-    # the face normal as the JAX package's jitted flatten rounds it: its
-    # cross product fused by XLA:CPU (cross3), its norm as vector_norm's
-    g = cross3(torch.from_numpy(np.ascontiguousarray(e1, np.float32)),
-               torch.from_numpy(np.ascontiguousarray(e2, np.float32)))
-    gn = (g / torch.clamp(torch.linalg.vector_norm(g, dim=-1, keepdim=True), min=1e-20)).numpy()
+    gn = face_normal(torch.from_numpy(np.ascontiguousarray(e1, np.float32)),
+                     torch.from_numpy(np.ascontiguousarray(e2, np.float32))).numpy()
     uv = (
         uvs[tri_v].astype(np.float32)
         if uvs is not None
@@ -120,6 +120,51 @@ def flatten_triangles(
         mat=tri_material[tids].astype(np.int32),
         geom_normal=gn.astype(np.float32),
     )
+
+
+def face_normal(e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
+    """The unit face normal (T,3) of edges e1, e2 (T,3) as the JAX package's
+    jitted flatten rounds it on XLA:CPU, bit for bit on any device: its
+    cross product's first products fused (cross3), the squares' sum fused,
+    a correctly rounded root (ATen's float32 sqrt on the CPU is not, in the
+    last place)."""
+    g = cross3(e1, e2)
+    x, y, z = g.unbind(-1)
+    norm = torch.sqrt(fma(z, z, fma(y, y, x * x)).double()).float()
+    return g / torch.clamp(norm, min=1e-20)[..., None]
+
+
+def flatten_triangles_device(
+    slot_tri_ids: np.ndarray,
+    vertices: np.ndarray,
+    indices: np.ndarray,
+    normals: np.ndarray,
+    uvs: np.ndarray | None,
+    tri_material: np.ndarray,
+    device="cuda",
+) -> FlatTriangles:
+    """flatten_triangles on `device` (the card unless the caller asks for
+    the CPU): uploads the indexed mesh once (about a third of the
+    de-indexed tables' bytes) and gathers, encodes the normals and forms
+    the face normals there. Returns a FlatTriangles of tensors on `device`,
+    bit-equal field by field to flatten_triangles' arrays (n_packed as
+    uint32 values in int64), which SceneArrays.from_flat takes as they are."""
+    dev = torch.device(device)
+
+    def put(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
+
+    tids = put(slot_tri_ids, np.int32).long()
+    tri_v = put(indices, np.int32)[tids].long()  # (T,3)
+    p = put(vertices, np.float32)[tri_v]  # (T,3,3)
+    p0 = p[:, 0]
+    e1 = p[:, 1] - p[:, 0]
+    e2 = p[:, 2] - p[:, 0]
+    n_packed = comp.compress_normal_t(put(normals, np.float32)[tri_v])  # (T,3)
+    uv = (put(uvs, np.float32)[tri_v] if uvs is not None
+          else torch.zeros((tids.shape[0], 3, 2), dtype=torch.float32, device=dev))
+    return FlatTriangles(p0=p0.contiguous(), e1=e1, e2=e2, n_packed=n_packed, uv=uv,
+                         mat=put(tri_material, np.int32)[tids], geom_normal=face_normal(e1, e2))
 
 
 def bvh2_nodes(node_min: np.ndarray, node_max: np.ndarray,

@@ -83,7 +83,9 @@
 //   walk's tail, a few warps of long rays on an idle card, cannot hide.
 // Persistent warps measured no faster here (+-1%), and loading the next
 // record before the slab test resolves 7% slower; neither is kept. One ray
-// a thread.
+// a thread. idk_trace_closest_steps_capped is the JAX trace's `max_steps`
+// (ops/trace.py:245): each ray stops after that many steps, the cap of
+// the walk that the capped kernels below share with this one.
 //
 // Two more entry points, idk_trace_closest_capped and idk_trace_any_capped
 // (trace_capped_kernel<ANY_HIT>), replace no Pallas kernel: they are the
@@ -389,20 +391,25 @@ __device__ __forceinline__ int walk_ray(const float4* __restrict__ nodes,
   return steps;
 }
 
+// CAPPED false walks with no cap (a constant, so that the uncapped kernel
+// keeps 72 registers and 7 blocks an SM; the cap as an argument took 74
+// and 6 blocks, 2% slower, PERF.md).
+template <bool CAPPED>
 __global__ void __launch_bounds__(TRACE_BLOCK)
 trace_steps_kernel(const float4* __restrict__ nodes, const float4* __restrict__ tri_vec,
                    const float* __restrict__ o, const float* __restrict__ d,
                    const float* __restrict__ t_max, float* __restrict__ t_out,
                    int* __restrict__ slot_out, float* __restrict__ u_out,
                    float* __restrict__ v_out, int* __restrict__ steps_out, int n_rays,
-                   int leaf_bits) {
+                   int max_steps, int leaf_bits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const Ray r = load_ray(o, d, i);
   float t_best = t_max[i], best_u = 0.0f, best_v = 0.0f;
   int best_slot = -1;
   steps_out[i] = walk_ray<false, kStepsLeaf>(nodes, tri_vec, r, t_best, best_slot, best_u,
-                                             best_v, 0x7fffffff, leaf_bits);
+                                             best_v, CAPPED ? max_steps : 0x7fffffff,
+                                             leaf_bits);
   t_out[i] = t_best;
   slot_out[i] = best_slot;
   u_out[i] = best_u;
@@ -437,6 +444,18 @@ trace_capped_kernel(const float4* __restrict__ nodes, const float4* __restrict__
   }
 }
 
+template <bool CAPPED>
+int launch_steps(const void* nodes, const void* tri_vec, const void* o, const void* d,
+                 const void* t_max, void* t_out, void* slot_out, void* u_out, void* v_out,
+                 void* steps_out, int n_rays, int max_steps, int leaf_bits, void* stream) {
+  if (max_steps < 0 || leaf_bits < 5 || leaf_bits > 30) return (int)cudaErrorInvalidValue;
+  trace_steps_kernel<CAPPED><<<grid_for(n_rays), TRACE_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const float4*)nodes, (const float4*)tri_vec, (const float*)o, (const float*)d,
+      (const float*)t_max, (float*)t_out, (int*)slot_out, (float*)u_out, (float*)v_out,
+      (int*)steps_out, n_rays, max_steps, leaf_bits);
+  return (int)cudaGetLastError();
+}
+
 template <bool ANY_HIT>
 int launch_capped(const void* nodes, const void* tri_vec, const void* o, const void* d,
                   const void* t_max, void* t_out, void* slot_out, void* u_out, void* v_out,
@@ -454,12 +473,13 @@ int launch_capped(const void* nodes, const void* tri_vec, const void* o, const v
 extern "C" {
 
 // The interface of this library, for scripts that bind several versions
-// (trace_ab.py): 4 = the wide tables with a leaf_bits argument, the
-// threaded records of the steps kernel and the capped walks; 3 = the same
-// without the capped walks. Libraries without this function are older:
+// (trace_ab.py): 5 = the wide tables with a leaf_bits argument, the
+// threaded records of the steps kernel, the capped walks and the capped
+// steps kernel; 4 = the same without the capped steps kernel; 3 = without
+// the capped walks either. Libraries without this function are older:
 // with idk_trace_stack_limit the wide tables with 5 count bits, without it
 // the binary records.
-int idk_trace_interface() { return 4; }
+int idk_trace_interface() { return 5; }
 
 // The most stack entries a ray can hold (3 per record level of the tree).
 int idk_trace_stack_limit() { return TRACE_RING + TRACE_SPILL; }
@@ -491,24 +511,30 @@ int idk_trace_any(const void* wide, const void* tri_vec, const void* o, const vo
 }
 
 // Closest hit and traversal steps per ray over the threaded records
-// `nodes` ((N,8) i32, bvh/flatten.py:thread_nodes) and tri_vec. Outputs
+// `nodes` ((N,8) i32, bvh/flatten.py:thread_nodes) and tri_vec, each ray
+// stopped after at most max_steps node visits (max_steps >= 0). Outputs
 // (n_rays,) f32 t, i32 slot, f32 u, f32 v, i32 steps. Returns
 // cudaGetLastError().
+int idk_trace_closest_steps_capped(const void* nodes, const void* tri_vec, const void* o,
+                                   const void* d, const void* t_max, void* t_out,
+                                   void* slot_out, void* u_out, void* v_out, void* steps_out,
+                                   int n_rays, int max_steps, int leaf_bits, void* stream) {
+  return launch_steps<true>(nodes, tri_vec, o, d, t_max, t_out, slot_out, u_out, v_out,
+                            steps_out, n_rays, max_steps, leaf_bits, stream);
+}
+
+// idk_trace_closest_steps_capped with no cap (interface 3 and 4's entry).
 int idk_trace_closest_steps(const void* nodes, const void* tri_vec, const void* o,
                             const void* d, const void* t_max, void* t_out, void* slot_out,
                             void* u_out, void* v_out, void* steps_out, int n_rays,
                             int leaf_bits, void* stream) {
-  if (leaf_bits < 5 || leaf_bits > 30) return (int)cudaErrorInvalidValue;
-  trace_steps_kernel<<<grid_for(n_rays), TRACE_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float4*)nodes, (const float4*)tri_vec, (const float*)o, (const float*)d,
-      (const float*)t_max, (float*)t_out, (int*)slot_out, (float*)u_out, (float*)v_out,
-      (int*)steps_out, n_rays, leaf_bits);
-  return (int)cudaGetLastError();
+  return launch_steps<false>(nodes, tri_vec, o, d, t_max, t_out, slot_out, u_out, v_out,
+                             steps_out, n_rays, 0, leaf_bits, stream);
 }
 
 // Closest hit per ray after at most max_steps node visits of the threaded
-// walk (max_steps >= 0): outputs as idk_trace_closest_steps without the
-// steps. Returns cudaGetLastError().
+// walk (max_steps >= 0): outputs as idk_trace_closest_steps_capped
+// without the steps. Returns cudaGetLastError().
 int idk_trace_closest_capped(const void* nodes, const void* tri_vec, const void* o,
                              const void* d, const void* t_max, void* t_out, void* slot_out,
                              void* u_out, void* v_out, int n_rays, int max_steps,

@@ -17,7 +17,13 @@ kernels over the same threaded records, launched by `_closest_capped` and
 `trace_any_two_level` are the JAX package's two-level traces
 (`idkengine_tpu/ops/trace.py:177, 227`) over these wrappers: one launch
 for the static scene and one an instance, each counted by the wrapper
-that makes it and by the two-level function. The kernels are compiled
+that makes it and by the two-level function. Each entry point but the
+steps trace takes the JAX package's call-site `tag` (`pri`, `bnc`, `nee`,
+`env`, an `a` after it for the alpha rounds, `spmd`) and launches inside
+the profiler range that its Pallas kernel's name would carry
+(profiling.call_site), which profiling.capture_device_profile buckets as
+the JAX package buckets that kernel. `trace_closest_steps` takes the JAX
+trace's `max_steps` too. The kernels are compiled
 with nvcc on first use into `build/` and bound with ctypes. A CUDA tensor
 reaches the kernel or the call raises; the plain version runs only for
 tensors on the CPU.
@@ -26,9 +32,11 @@ from __future__ import annotations
 
 import ctypes
 import os
+from functools import partial
 
 import torch
 
+from ..profiling import call_site
 from . import trace as _plain
 from ._build import CSRC_DIR, build_shared_library, find_nvcc
 from .trace import Hit, SceneArrays
@@ -64,6 +72,9 @@ def bind_library(path: str) -> ctypes.CDLL:
     lib.idk_trace_any.argtypes = [vp] * 7 + [ci, ci, ci, vp]
     lib.idk_trace_closest_steps.restype = ci
     lib.idk_trace_closest_steps.argtypes = [vp] * 10 + [ci, ci, vp]
+    if hasattr(lib, "idk_trace_closest_steps_capped"):  # interface 5 on
+        lib.idk_trace_closest_steps_capped.restype = ci
+        lib.idk_trace_closest_steps_capped.argtypes = [vp] * 10 + [ci, ci, ci, vp]
     if hasattr(lib, "idk_trace_closest_capped"):  # interface 4 on
         lib.idk_trace_closest_capped.restype = ci
         lib.idk_trace_closest_capped.argtypes = [vp] * 9 + [ci, ci, ci, vp]
@@ -79,8 +90,8 @@ def _load():
         if lib.idk_trace_stack_limit() != WIDE_STACK_LIMIT:
             raise RuntimeError(f"{TRACE_SOURCE} holds {lib.idk_trace_stack_limit()} stack "
                                f"entries a ray, the wrapper expects {WIDE_STACK_LIMIT}")
-        if lib.idk_trace_interface() < 4:
-            raise RuntimeError(f"{TRACE_SOURCE} has no capped walks (interface "
+        if lib.idk_trace_interface() < 5:
+            raise RuntimeError(f"{TRACE_SOURCE} has no capped steps kernel (interface "
                                f"{lib.idk_trace_interface()})")
         _lib = lib
     return _lib
@@ -183,64 +194,72 @@ def _check_cap(max_steps):
 
 
 def trace_closest(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
-                  max_steps: int | None = None) -> Hit:
+                  max_steps: int | None = None, tag: str = "") -> Hit:
     """Closest hit per ray: Hit(t, slot, u, v); slot -1 and t = t_max on a
     miss; t_max < 0 marks a dead ray. o/d: (R,3) f32; t_max: (R,) or scalar.
     max_steps: stop each ray after that many steps of the stackless binary
-    walk (the capped kernel), or None for no cap (the trace kernel)."""
+    walk (the capped kernel), or None for no cap (the trace kernel). tag:
+    the call site's, as the JAX package's (pri, bnc, ...): the launch runs
+    in the profiler range profiling.call_site_name(False, tag)."""
     _check_cap(max_steps)
-    if _on_cpu(scene, o, d):
-        return _plain.trace_closest(scene, o, d, t_max, max_steps=max_steps)
-    if max_steps is not None:
-        return _closest_capped(scene, o, d, t_max, max_steps)
-    t_max, entries = _check_wide(scene, o, d, t_max)
-    r = o.shape[0]
-    t = torch.empty(r, dtype=torch.float32, device=o.device)
-    slot = torch.empty(r, dtype=torch.int32, device=o.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    if r:
-        next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
-        stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = _load().idk_trace_closest(
-            *_wide_tables(scene), _ptr(o), _ptr(d), _ptr(t_max), _ptr(t),
-            _ptr(slot), _ptr(u), _ptr(v), _ptr(next_ray), r, entries, scene.bvh4_leaf_bits,
-            ctypes.c_void_p(stream))
-        _raise_on(err, "trace_closest")
-        trace_closest.launches += 1
-    return Hit(t=t, slot=slot, u=u, v=v)
+    with call_site(False, tag):
+        if _on_cpu(scene, o, d):
+            return _plain.trace_closest(scene, o, d, t_max, max_steps=max_steps)
+        if max_steps is not None:
+            return _closest_capped(scene, o, d, t_max, max_steps)
+        t_max, entries = _check_wide(scene, o, d, t_max)
+        r = o.shape[0]
+        t = torch.empty(r, dtype=torch.float32, device=o.device)
+        slot = torch.empty(r, dtype=torch.int32, device=o.device)
+        u = torch.empty_like(t)
+        v = torch.empty_like(t)
+        if r:
+            next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
+            stream = torch.cuda.current_stream(o.device).cuda_stream
+            err = _load().idk_trace_closest(
+                *_wide_tables(scene), _ptr(o), _ptr(d), _ptr(t_max), _ptr(t),
+                _ptr(slot), _ptr(u), _ptr(v), _ptr(next_ray), r, entries, scene.bvh4_leaf_bits,
+                ctypes.c_void_p(stream))
+            _raise_on(err, "trace_closest")
+            trace_closest.launches += 1
+        return Hit(t=t, slot=slot, u=u, v=v)
 
 
 def trace_any(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
-              max_steps: int | None = None) -> torch.Tensor:
+              max_steps: int | None = None, tag: str = "") -> torch.Tensor:
     """Occlusion per ray: bool (R,), True where a triangle lies at
     0 < t < t_max. t_max < 0 marks a dead ray (never occluded). max_steps
-    as in trace_closest."""
+    as in trace_closest; tag too (nee, env, ...), the range
+    profiling.call_site_name(True, tag)."""
     _check_cap(max_steps)
-    if _on_cpu(scene, o, d):
-        return _plain.trace_any(scene, o, d, t_max, max_steps=max_steps)
-    if max_steps is not None:
-        return _any_capped(scene, o, d, t_max, max_steps)
-    t_max, entries = _check_wide(scene, o, d, t_max)
-    r = o.shape[0]
-    occ = torch.empty(r, dtype=torch.bool, device=o.device)
-    if r:
-        next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
-        stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = _load().idk_trace_any(
-            *_wide_tables(scene), _ptr(o), _ptr(d), _ptr(t_max), _ptr(occ), _ptr(next_ray),
-            r, entries, scene.bvh4_leaf_bits, ctypes.c_void_p(stream))
-        _raise_on(err, "trace_any")
-        trace_any.launches += 1
-    return occ
+    with call_site(True, tag):
+        if _on_cpu(scene, o, d):
+            return _plain.trace_any(scene, o, d, t_max, max_steps=max_steps)
+        if max_steps is not None:
+            return _any_capped(scene, o, d, t_max, max_steps)
+        t_max, entries = _check_wide(scene, o, d, t_max)
+        r = o.shape[0]
+        occ = torch.empty(r, dtype=torch.bool, device=o.device)
+        if r:
+            next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
+            stream = torch.cuda.current_stream(o.device).cuda_stream
+            err = _load().idk_trace_any(
+                *_wide_tables(scene), _ptr(o), _ptr(d), _ptr(t_max), _ptr(occ),
+                _ptr(next_ray), r, entries, scene.bvh4_leaf_bits, ctypes.c_void_p(stream))
+            _raise_on(err, "trace_any")
+            trace_any.launches += 1
+        return occ
 
 
 def trace_closest_steps(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor,
-                        t_max) -> tuple[Hit, torch.Tensor]:
+                        t_max, max_steps: int = 1 << 30) -> tuple[Hit, torch.Tensor]:
     """trace_closest plus each ray's traversal steps, (R,) int32, counted as
-    the stackless walk of ops/trace.py counts them (one node per step)."""
+    the stackless walk of ops/trace.py counts them (one node per step);
+    each ray stops after max_steps steps (the JAX package's default, 1 << 30,
+    is no cap on any real tree)."""
+    _check_cap(max_steps)
     if _on_cpu(scene, o, d):
-        return _plain.trace_closest_steps(scene, o, d, t_max)
+        return _plain.trace_closest_steps(scene, o, d, t_max, max_steps=max_steps)
     t_max = _check_thread(scene, o, d, t_max)
     r = o.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=o.device)
@@ -249,11 +268,16 @@ def trace_closest_steps(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor,
     v = torch.empty_like(t)
     steps = torch.empty(r, dtype=torch.int32, device=o.device)
     if r:
-        stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = _load().idk_trace_closest_steps(
-            _ptr(scene.bvh_thread), _ptr(scene.tri_vec), _ptr(o), _ptr(d), _ptr(t_max), _ptr(t),
-            _ptr(slot), _ptr(u), _ptr(v), _ptr(steps), r, scene.bvh4_leaf_bits,
-            ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream)
+        tables = (_ptr(scene.bvh_thread), _ptr(scene.tri_vec), _ptr(o), _ptr(d), _ptr(t_max),
+                  _ptr(t), _ptr(slot), _ptr(u), _ptr(v), _ptr(steps), r)
+        if max_steps >= scene.bvh_thread.shape[0]:
+            # the walk steps on each record at most once (its links only go
+            # forward): the cap stops no ray, the uncapped entry point serves
+            err = _load().idk_trace_closest_steps(*tables, scene.bvh4_leaf_bits, stream)
+        else:
+            err = _load().idk_trace_closest_steps_capped(*tables, int(max_steps),
+                                                         scene.bvh4_leaf_bits, stream)
         _raise_on(err, "trace_closest_steps")
         trace_closest_steps.launches += 1
     return Hit(t=t, slot=slot, u=u, v=v), steps
@@ -303,26 +327,28 @@ def _trace_launches() -> int:
 
 
 def trace_closest_two_level(static_scene: SceneArrays, inst_scenes, inst_inv, inst_boxes,
-                            o, d, t_max, slot_off=None, max_steps: int | None = None):
+                            o, d, t_max, slot_off=None, max_steps: int | None = None,
+                            tag: str = ""):
     """Two-level closest hit (ops/trace.py:two_level_closest) through
     trace_closest: the trace kernel, or the capped kernel with max_steps,
-    once for the static scene and once an instance. Returns (Hit, inst_id).
-    Its count is the kernel launches made inside it."""
+    once for the static scene and once an instance, each launch tagged
+    `tag`. Returns (Hit, inst_id). Its count is the kernel launches made
+    inside it."""
     before = _trace_launches()
-    out = _plain.two_level_closest(trace_closest, static_scene, inst_scenes, inst_inv,
-                                   inst_boxes, o, d, t_max, slot_off, max_steps)
+    out = _plain.two_level_closest(partial(trace_closest, tag=tag), static_scene, inst_scenes,
+                                   inst_inv, inst_boxes, o, d, t_max, slot_off, max_steps)
     trace_closest_two_level.launches += _trace_launches() - before
     return out
 
 
 def trace_any_two_level(static_scene: SceneArrays, inst_scenes, inst_inv, inst_boxes, o, d,
-                        t_max, max_steps: int | None = None) -> torch.Tensor:
+                        t_max, max_steps: int | None = None, tag: str = "") -> torch.Tensor:
     """Two-level occlusion (ops/trace.py:two_level_any) through trace_any,
     as trace_closest_two_level; inst_boxes is not used."""
     del inst_boxes
     before = _trace_launches()
-    out = _plain.two_level_any(trace_any, static_scene, inst_scenes, inst_inv, o, d, t_max,
-                               max_steps)
+    out = _plain.two_level_any(partial(trace_any, tag=tag), static_scene, inst_scenes, inst_inv,
+                               o, d, t_max, max_steps)
     trace_any_two_level.launches += _trace_launches() - before
     return out
 

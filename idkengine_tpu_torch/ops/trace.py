@@ -95,10 +95,18 @@ class SceneArrays:
         }, max_leaf, device)
 
 
+_TORCH_DTYPES = {np.float32: torch.float32, np.int32: torch.int32, np.int64: torch.int64}
+
+
 def from_jax_scene_arrays(arrays: dict, max_leaf: int, device) -> SceneArrays:
     """The port's SceneArrays from the JAX package's SceneArrays fields
-    (JAX_FIELDS) given as numpy arrays; `max_leaf` is its static leaf size."""
-    a = {k: np.asarray(arrays[k]) for k in JAX_FIELDS}
+    (JAX_FIELDS) given as numpy arrays; `max_leaf` is its static leaf size.
+    A field given as a tensor (the triangles of bvh/flatten.py's
+    flatten_triangles_device) is taken on `device` as it is, with no host
+    round trip; the node tables are built on the host from the numpy node
+    arrays."""
+    a = {k: arrays[k] if isinstance(arrays[k], torch.Tensor) else np.asarray(arrays[k])
+         for k in JAX_FIELDS}
     nodes, depth = bvh2_nodes(a["node_min"], a["node_max"], a["node_first"],
                               a["node_count"], a["miss_link"])
     bits = leaf_bits(a["node_count"])
@@ -110,20 +118,23 @@ def from_jax_scene_arrays(arrays: dict, max_leaf: int, device) -> SceneArrays:
     threaded = thread_nodes(a["node_min"], a["node_max"], a["node_first"], a["node_count"],
                             a["miss_link"], bits)
     thread_ms = (time.perf_counter() - t0) * 1e3
-    tri = [np.asarray(a[k], np.float32).reshape(-1, 3) for k in ("tri_p0", "tri_e1", "tri_e2")]
-    tri_vec = np.concatenate([*tri, np.zeros_like(tri[0])], axis=1)
     dtypes = {"node_first": np.int32, "node_count": np.int32, "hit_link": np.int32,
               "miss_link": np.int32, "tri_n": np.int64, "tri_mat": np.int32}
 
     def put(x, dtype=np.float32):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=_TORCH_DTYPES[dtype]).contiguous()
         # a copy: the caller's arrays may be read-only views of JAX buffers
         return torch.from_numpy(np.array(x, dtype)).to(device)
 
+    fields = {k: put(a[k], dtypes.get(k, np.float32)) for k in JAX_FIELDS}
+    tri = [fields[k].reshape(-1, 3) for k in ("tri_p0", "tri_e1", "tri_e2")]
+    tri_vec = torch.cat([*tri, torch.zeros_like(tri[0])], dim=1)
     return SceneArrays(
-        **{k: put(a[k], dtypes.get(k, np.float32)) for k in JAX_FIELDS},
+        **fields,
         bvh_nodes=put(nodes, np.int32), bvh_depth=depth, bvh_thread=put(threaded, np.int32),
         bvh4_nodes=put(wide, np.int32), bvh4_depth=wide_depth, bvh4_child=put(child, np.int32),
-        bvh4_leaf_bits=bits, tri_vec=put(tri_vec), max_leaf=int(max_leaf),
+        bvh4_leaf_bits=bits, tri_vec=tri_vec, max_leaf=int(max_leaf),
         bvh4_build_ms=wide_ms, thread_build_ms=thread_ms)
 
 
@@ -226,12 +237,14 @@ def trace_closest(scene: SceneArrays, o, d, t_max=INF, max_steps: int | None = N
     return _traverse(scene, o, d, t_max, False, max_steps=max_steps)
 
 
-def trace_closest_steps(scene: SceneArrays, o, d, t_max=INF) -> tuple[Hit, torch.Tensor]:
+def trace_closest_steps(scene: SceneArrays, o, d, t_max=INF,
+                        max_steps: int = 1 << 30) -> tuple[Hit, torch.Tensor]:
     """trace_closest plus each ray's traversal steps, (R,) int32: the
-    iterations it spends with its pointer >= 0 (the debug-statistics path,
-    ref: BLAS.cs DebugStatistics + the BVH-cost heatmap)."""
+    iterations it spends with its pointer >= 0, at most max_steps (the JAX
+    package's cap and default; the debug-statistics path, ref: BLAS.cs
+    DebugStatistics + the BVH-cost heatmap)."""
     steps = torch.zeros(o.shape[0], dtype=torch.int32, device=o.device)
-    return _traverse(scene, o, d, t_max, False, steps), steps
+    return _traverse(scene, o, d, t_max, False, steps, max_steps=max_steps), steps
 
 
 def trace_any(scene: SceneArrays, o, d, t_max, max_steps: int | None = None) -> torch.Tensor:

@@ -24,6 +24,7 @@ import os
 
 import torch
 
+from ..profiling import call_site
 from . import packet_trace as _pt
 from ._build import CSRC_DIR, build_shared_library, find_nvcc
 from .intersect import ray_aabb, ray_triangle
@@ -248,17 +249,20 @@ def phase_b_any(scene: SceneArrays, lists: torch.Tensor, o: torch.Tensor,
 
 
 def two_phase_closest(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
-                      d_slots: int = D_SLOTS) -> Hit:
+                      d_slots: int = D_SLOTS, tag: str = "") -> Hit:
     """Exact closest hit: phase A, phase B, then one one-phase trace for the
     rays whose lists overflowed, pruned by their phase-B t (the others carry
-    t_max = -1 and leave at once). t is t_max on a miss."""
+    t_max = -1 and leave at once). t is t_max on a miss. tag: the call
+    site's, as packet_trace.trace_closest's: every launch runs in its
+    range."""
     check_d_slots(d_slots)
-    t_max = _t_max(o, t_max)
-    lists, cnt = phase_a(scene, o, d, t_max, d_slots)
-    hit = phase_b_closest(scene, lists, o, d, t_max)
-    over = cnt > d_slots
-    tm2 = torch.where(over & (t_max > 0.0), torch.minimum(hit.t, t_max), -1.0)
-    h2 = _pt.trace_closest(scene, o, d, tm2)
+    with call_site(False, tag):
+        t_max = _t_max(o, t_max)
+        lists, cnt = phase_a(scene, o, d, t_max, d_slots)
+        hit = phase_b_closest(scene, lists, o, d, t_max)
+        over = cnt > d_slots
+        tm2 = torch.where(over & (t_max > 0.0), torch.minimum(hit.t, t_max), -1.0)
+        h2 = _pt.trace_closest(scene, o, d, tm2, tag=tag)
     closer = h2.slot >= 0
     slot = torch.where(closer, h2.slot, hit.slot)
     return Hit(t=torch.where(slot >= 0, torch.where(closer, h2.t, hit.t), t_max), slot=slot,
@@ -266,15 +270,17 @@ def two_phase_closest(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_ma
 
 
 def two_phase_any(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
-                  d_slots: int = D_SLOTS) -> torch.Tensor:
+                  d_slots: int = D_SLOTS, tag: str = "") -> torch.Tensor:
     """Occlusion: phase A, phase B, then one one-phase any-hit trace for the
-    rays whose lists overflowed and found no occluder."""
+    rays whose lists overflowed and found no occluder; tag as in
+    two_phase_closest."""
     check_d_slots(d_slots)
-    t_max = _t_max(o, t_max)
-    lists, cnt = phase_a(scene, o, d, t_max, d_slots)
-    occ = phase_b_any(scene, lists, o, d, t_max)
-    unresolved = (cnt > d_slots) & ~occ & (t_max > 0.0)
-    return occ | _pt.trace_any(scene, o, d, torch.where(unresolved, t_max, -1.0))
+    with call_site(True, tag):
+        t_max = _t_max(o, t_max)
+        lists, cnt = phase_a(scene, o, d, t_max, d_slots)
+        occ = phase_b_any(scene, lists, o, d, t_max)
+        unresolved = (cnt > d_slots) & ~occ & (t_max > 0.0)
+        return occ | _pt.trace_any(scene, o, d, torch.where(unresolved, t_max, -1.0), tag=tag)
 
 
 # launch counts: each wrapper adds one where it launches its kernel

@@ -22,6 +22,7 @@ import contextlib
 import copy
 import dataclasses
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 from torch.profiler import record_function
@@ -270,7 +271,8 @@ class ShardedPathTracer:
 # trace under shard_map, its segment tables replicated; the port's
 # whole-scene kernel replaces the steering (ROADMAP), so each shard runs
 # trace_closest / trace_any (the trace kernel on a card, the plain walk on
-# the CPU) on its slice of the rays against a replica of the scene.
+# the CPU) on its slice of the rays against a replica of the scene, tagged
+# spmd as the JAX package tags its sharded launches.
 # ---------------------------------------------------------------------------
 
 def _sharded_trace(mesh: Mesh, scene, trace, gather):
@@ -295,7 +297,7 @@ def shard_packet_closest(mesh: Mesh, scene):
     def gather(outs, dev0):
         return Hit(*(torch.cat([f.to(dev0) for f in fields]) for fields in zip(*outs)))
 
-    return _sharded_trace(mesh, scene, trace_closest, gather)
+    return _sharded_trace(mesh, scene, partial(trace_closest, tag="spmd"), gather)
 
 
 def shard_packet_any(mesh: Mesh, scene):
@@ -304,4 +306,4 @@ def shard_packet_any(mesh: Mesh, scene):
     def gather(outs, dev0):
         return torch.cat([x.to(dev0) for x in outs])
 
-    return _sharded_trace(mesh, scene, trace_any, gather)
+    return _sharded_trace(mesh, scene, partial(trace_any, tag="spmd"), gather)

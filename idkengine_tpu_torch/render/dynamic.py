@@ -26,7 +26,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from ..ops.intersect import cross3, fma
+from ..bvh.flatten import face_normal
 from ..ops.trace import SceneArrays
 from ..utils.compression import compress_normal_t
 
@@ -98,14 +98,9 @@ class DeviceRefitter:
         p = verts[self._tri_v]  # (S,3,3)
         e1 = p[:, 1] - p[:, 0]
         e2 = p[:, 2] - p[:, 0]
-        g = cross3(e1, e2)
-        # the norm as XLA:CPU rounds it: the squares' sum fused, a correctly
-        # rounded root (ATen's float32 sqrt on the CPU is not, in the last place)
-        sq = fma(g[:, 2:3], g[:, 2:3], fma(g[:, 1:2], g[:, 1:2], g[:, 0:1] * g[:, 0:1]))
-        norm = torch.sqrt(sq.double()).float()
         nrm = normals[self._tri_v]
         return dict(corners=p, tri_p0=p[:, 0].contiguous(), tri_e1=e1, tri_e2=e2,
-                    tri_gn=g / torch.clamp(norm, min=1e-20), tri_n=compress_normal_t(nrm),
+                    tri_gn=face_normal(e1, e2), tri_n=compress_normal_t(nrm),
                     tri_vec=torch.cat([p[:, 0], e1, e2, torch.zeros_like(e1)], dim=1))
 
     def boxes(self, corners: torch.Tensor, scene: SceneArrays):

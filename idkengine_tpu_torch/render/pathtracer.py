@@ -123,16 +123,18 @@ class PathTracerSettings:
     mip_bias: float = 0.0
 
 
-def _trace_closest_tiled(scene, o, d, t_max, tile: int = 0, max_steps=None) -> Hit:
+def _trace_closest_tiled(scene, o, d, t_max, tile: int = 0, max_steps=None,
+                         tag: str = "") -> Hit:
     """trace_closest in launches of `tile` rays where the batch is larger
     than a tile and a multiple of it (the JAX package's
-    `_trace_maybe_tiled`), else in one; `max_steps` caps each ray's walk."""
+    `_trace_maybe_tiled`), else in one; `max_steps` caps each ray's walk;
+    `tag` is the call site's."""
     r = o.shape[0]
     if not (tile and r > tile and r % tile == 0):
-        return trace_closest(scene, o, d, t_max, max_steps=max_steps)
+        return trace_closest(scene, o, d, t_max, max_steps=max_steps, tag=tag)
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(r)
     parts = [trace_closest(scene, o[i:i + tile], d[i:i + tile], t_max[i:i + tile].contiguous(),
-                           max_steps=max_steps) for i in range(0, r, tile)]
+                           max_steps=max_steps, tag=tag) for i in range(0, r, tile)]
     return Hit(*(torch.cat(k) for k in zip(*parts)))
 
 
@@ -497,14 +499,16 @@ class PathTracer:
         keep = torch.where(cut < 0.0, True, torch.where(cut > 0.0, a >= cut, u_a < a))
         return state, keep
 
-    def _closest_alpha(self, closest, state, o, d, t_max):
+    def _closest_alpha(self, closest, state, o, d, t_max, tag: str):
         """Closest hit with up to alpha_rounds stochastic re-traces past
         alpha-discarded surfaces; t stays measured from o. A hit kept in an
         earlier round is never re-tested (re-rolling a BLEND keep each round
         would make alpha=a surfaces behave like a^alpha_rounds). Rays that
         are not re-traced go to the trace dead (t_max = -1). `closest`
-        returns (Hit, instance id or None); so does this, with the hit."""
-        hit, inst = closest(self.scene, o, d, t_max)
+        returns (Hit, instance id or None); so does this, with the hit.
+        The first trace carries the call site's `tag`, the re-traces
+        tag + "a", as the JAX package tags them."""
+        hit, inst = closest(self.scene, o, d, t_max, tag=tag)
         if not self._has_alpha:
             return state, hit, inst
         t_base = torch.zeros_like(t_max)
@@ -520,18 +524,20 @@ class PathTracer:
                 o_cur = torch.where(redo[..., None], fma(d, adv[..., None], o_cur), o_cur)
                 t_base = torch.where(redo, t_base + adv, t_base)
                 tm_rel = torch.where(redo, t_max - t_base, -1.0)
-                h2, i2 = closest(self.scene, o_cur.contiguous(), d, tm_rel)
+                h2, i2 = closest(self.scene, o_cur.contiguous(), d, tm_rel, tag=tag + "a")
                 hit = Hit(*(torch.where(redo, new, old) for new, old in zip(h2, hit)))
                 if inst is not None:
                     inst = torch.where(redo, i2, inst)
         return state, hit._replace(t=t_base + hit.t), inst
 
-    def _shadow_occluded(self, closest, occluded, state, o, d, t_max):
+    def _shadow_occluded(self, closest, occluded, state, o, d, t_max, tag: str):
         """Occlusion with alpha transparency: alpha_rounds closest traces,
         each passing the surfaces the alpha test discards, then a
-        conservative any-hit tail for anything still blocking."""
+        conservative any-hit tail for anything still blocking. Without
+        alpha one any-hit trace tagged `tag`; with it every trace tagged
+        tag + "a", as the JAX package tags them."""
         if not self._has_alpha:
-            return state, occluded(self.scene, o, d, t_max)
+            return state, occluded(self.scene, o, d, t_max, tag=tag)
         occ = torch.zeros(t_max.shape, dtype=torch.bool, device=o.device)
         t_base = torch.zeros_like(t_max)
         o_cur = o
@@ -539,7 +545,7 @@ class PathTracer:
         with record_function("pt/shadow alpha rounds"):
             for _ in range(self.alpha_rounds):
                 tm_rel = torch.where(active, t_max - t_base, -1.0)
-                h, _ = closest(self.scene, o_cur.contiguous(), d, tm_rel)
+                h, _ = closest(self.scene, o_cur.contiguous(), d, tm_rel, tag=tag + "a")
                 hitm = active & (h.slot >= 0)
                 state, keep = self._alpha_keep(h, state)
                 occ = occ | (hitm & keep)
@@ -548,22 +554,24 @@ class PathTracer:
                 o_cur = torch.where(active[..., None], fma(d, adv[..., None], o_cur), o_cur)
                 t_base = torch.where(active, t_base + adv, t_base)
         tm_rel = torch.where(active, t_max - t_base, -1.0)
-        return state, occ | occluded(self.scene, o_cur.contiguous(), d, tm_rel)
+        return state, occ | occluded(self.scene, o_cur.contiguous(), d, tm_rel, tag=tag + "a")
 
     def _trace_functions(self):
-        """(closest, occluded) of this tracer's settings: closest returns
-        (Hit, instance id or None), occluded a bool per ray."""
+        """(closest, occluded) of this tracer's settings, each called as
+        fn(scene, o, d, t_max, tag=...) with the call site's tag: closest
+        returns (Hit, instance id or None), occluded a bool per ray."""
         s = self.settings
         cap = None if s.max_trace_steps == _NO_MAX_STEPS else s.max_trace_steps
         iset = self.instances
         if iset is not None:
-            def closest(scene, o, d, t_max):
+            def closest(scene, o, d, t_max, tag):
                 return trace_closest_two_level(scene, iset.scenes, iset.inv, iset.boxes, o, d,
-                                               t_max, slot_off=iset.slot_off, max_steps=cap)
+                                               t_max, slot_off=iset.slot_off, max_steps=cap,
+                                               tag=tag)
 
-            def occluded(scene, o, d, t_max):
+            def occluded(scene, o, d, t_max, tag):
                 return trace_any_two_level(scene, iset.scenes, iset.inv, iset.boxes, o, d, t_max,
-                                           max_steps=cap)
+                                           max_steps=cap, tag=tag)
             return closest, occluded
         one, occluded = trace_closest, trace_any
         if s.use_two_phase:
@@ -572,8 +580,8 @@ class PathTracer:
             one = partial(_trace_closest_tiled, tile=s.tile_size, max_steps=cap)
             occluded = partial(trace_any, max_steps=cap)
 
-        def closest(scene, o, d, t_max):
-            return one(scene, o, d, t_max), None
+        def closest(scene, o, d, t_max, tag):
+            return one(scene, o, d, t_max, tag=tag), None
         return closest, occluded
 
     def _render_sample(self, cam_params: dict, frame: int, rate_depth=None, pixels=None):
@@ -650,7 +658,8 @@ class PathTracer:
                     alive, inside, last_delta = (flags & 1) != 0, (flags & 2) != 0, (flags & 4) != 0
             rays_traced = rays_traced + alive.sum()
             t_max = torch.where(alive, 3.4e38, -1.0)
-            state, hit, hit_inst = self._closest_alpha(closest, state, o, d, t_max)
+            state, hit, hit_inst = self._closest_alpha(closest, state, o, d, t_max,
+                                                       "pri" if bounce == 0 else "bnc")
 
             # analytic light spheres (ref: BVHIntersect.glsl:189-203 traces
             # lights before the BLAS)
@@ -801,7 +810,7 @@ class PathTracer:
                     sh_o = hp_point + gn * eps_o[..., None]
                     state, occluded = self._shadow_occluded(closest, occluded_fn, state,
                                                             sh_o.contiguous(), ldir.contiguous(),
-                                                            sh_tmax)
+                                                            sh_tmax, "nee")
                     # full GGX BRDF (diffuse + rough specular); near-delta
                     # specular and transmission are left to BSDF sampling
                     brdf_cos = shading.ggx_brdf(ns, -d, ldir, albedo, metallic, roughness)
@@ -826,7 +835,7 @@ class PathTracer:
                     rays_traced = rays_traced + do_enee.sum()
                     e_o = (hp_point + gn * eps_o[..., None]).contiguous()
                     state, occluded_e = self._shadow_occluded(closest, occluded_fn, state, e_o,
-                                                              edir.contiguous(), e_tmax)
+                                                              edir.contiguous(), e_tmax, "env")
                     brdf_e = shading.ggx_brdf(ns, -d, edir, albedo, metallic, roughness)
                     brdf_e = brdf_e * (1.0 - transmission)[..., None]
                     contrib_e = (throughput * brdf_e * self._sky(edir)

@@ -1,7 +1,8 @@
 """Sampling routines on ray batches. Counterpart: idkengine_tpu/render/sampling.py.
 
 ref: Resource/Shaders/include/Sampling.glsl: ONB construction, cosine
-hemisphere, sphere-light solid-angle sampling, reflection and refraction.
+hemisphere, uniform sphere, sphere-light solid-angle sampling, reflection
+and refraction.
 """
 from __future__ import annotations
 
@@ -33,6 +34,14 @@ def cosine_hemisphere(n, u):
     y = r * torch.sin(phi)
     z = torch.sqrt(torch.clamp(1.0 - u[..., 1], min=0.0))
     return t * x[..., None] + b * y[..., None] + n * z[..., None]
+
+
+def uniform_sphere(u):
+    """Uniform direction on the unit sphere. u: (...,2)."""
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = TWO_PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
 def sphere_light_sample(p, center, radius, u):

@@ -20,13 +20,14 @@ tests animate a node at rest at the identity, where the two agree).
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..bvh.builder import BLAS, TLAS, BuildSettings
-from ..bvh.flatten import flatten_triangles, thread_bvh
+from ..bvh.flatten import flatten_triangles, flatten_triangles_device, thread_bvh
 from ..ops.trace import InstanceSet, SceneArrays, linear_map
 from ..utils import mathutil as mu
 from . import animation as anim_mod
@@ -45,6 +46,7 @@ class SceneMeta:
     n_triangles: int = 0
     n_nodes: int = 0
     sah_cost: float = 0.0
+    epo: float = 0.0  # BLAS.epo after each build; nan with IDK_EPO=0
     build_ms: float = 0.0
     max_depth: int = 0
 
@@ -184,20 +186,25 @@ class SceneDatabase:
             self._refresh_instance_device()
             log.info("instanced: %d models, %d instances (two-level trace)",
                      len(self._instanced_models), len(self._instance_list))
+        # quality metrics logged per build like the reference (SAH + EPO,
+        # ref: Bvh/BVH.cs:460-469 + BLAS.ComputeGlobalEPO): SAH alone misses
+        # node-overlap pathologies; IDK_EPO=0 skips EPO (nan)
         self.meta = SceneMeta(
             n_triangles=int(self._indices.shape[0]), n_nodes=int(self._flat.node_min.shape[0]),
-            sah_cost=self.blas.sah_cost, build_ms=self.blas.build_ms,
-            max_depth=self.device_scene.bvh_depth)
-        log.info("scene built: %d tris → %d slots, %d nodes, depth %d, SAH %.1f, %.0f ms",
-                 self.meta.n_triangles, self._slot_tri.shape[0], self.meta.n_nodes,
-                 self.meta.max_depth, self.meta.sah_cost, self.meta.build_ms)
+            sah_cost=self.blas.sah_cost,
+            epo=self.blas.epo() if os.environ.get("IDK_EPO", "1") != "0" else float("nan"),
+            build_ms=self.blas.build_ms, max_depth=self.device_scene.bvh_depth)
+        log.info("scene built: %d tris → %d slots, %d nodes, depth %d, SAH %.1f, EPO %.3f, "
+                 "%.0f ms", self.meta.n_triangles, self._slot_tri.shape[0], self.meta.n_nodes,
+                 self.meta.max_depth, self.meta.sah_cost, self.meta.epo, self.meta.build_ms)
         return self.device_scene
 
     def _upload(self) -> SceneArrays:
-        """The static scene's SceneArrays from the host arrays, on the
-        build's device."""
-        ft = flatten_triangles(self._slot_tri, self._verts, self._indices, self._normals,
-                               self._uvs, self._tri_mat)
+        """The static scene's SceneArrays on the build's device: the indexed
+        mesh uploaded once and flattened there (flatten_triangles_device, as
+        the JAX package's build, update and refit_host flatten)."""
+        ft = flatten_triangles_device(self._slot_tri, self._verts, self._indices, self._normals,
+                                      self._uvs, self._tri_mat, device=self._device)
         return SceneArrays.from_flat(self._flat, ft, self.build_settings.max_leaf_triangle_count,
                                      self._device)
 

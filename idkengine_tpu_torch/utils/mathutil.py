@@ -1,9 +1,9 @@
 """Host-side math helpers (numpy). Counterpart: idkengine_tpu/utils/mathutil.py.
 
-Carried over as numpy code: the subset the ported slices use (vector
-normalisation, the camera's view and reverse-Z projection matrices, TRS
-compose/decompose for model nodes, quaternion slerp for animation, the
-Halton sequence of the TAA jitter).
+Carried over as numpy code: vector normalisation, the camera's view and
+reverse-Z projection matrices, TRS compose/decompose for model nodes,
+quaternion slerp for animation, the Halton sequence of the TAA jitter, the
+R2 sequence, 30-bit Morton codes and the area metrics.
 """
 from __future__ import annotations
 
@@ -35,6 +35,53 @@ def halton_2d(n: int) -> np.ndarray:
     """(n, 2) array of Halton(2,3) points in [0,1)^2 (TAA jitter sequence)."""
     idx = np.arange(n)
     return np.stack([halton(idx, 2), halton(idx, 3)], axis=-1).astype(np.float32)
+
+
+# R2 sequence constants (plastic number), ref: Resource/Shaders/include/Sampling.glsl
+_R2_G = 1.32471795724474602596
+_R2_A1 = 1.0 / _R2_G
+_R2_A2 = 1.0 / (_R2_G * _R2_G)
+
+
+def r2_sequence(n: int | np.ndarray) -> np.ndarray:
+    """R2 low-discrepancy sequence point(s) in [0,1)^2."""
+    n = np.asarray(n, dtype=np.float64)
+    return np.stack([(0.5 + _R2_A1 * n) % 1.0, (0.5 + _R2_A2 * n) % 1.0], axis=-1)
+
+
+# ---------------------------------------------------------------------------
+# Morton codes (30-bit, 10 bits per axis) — TLAS PLOC sort key
+# (ref: MyMath.cs:288, TLAS.cs:52-56)
+# ---------------------------------------------------------------------------
+
+def _expand_bits_10(v: np.ndarray) -> np.ndarray:
+    v = v.astype(np.uint64) & 0x3FF
+    v = (v | (v << 16)) & np.uint64(0x030000FF)
+    v = (v | (v << 8)) & np.uint64(0x0300F00F)
+    v = (v | (v << 4)) & np.uint64(0x030C30C3)
+    v = (v | (v << 2)) & np.uint64(0x09249249)
+    return v
+
+
+def morton_encode(xyz01: np.ndarray) -> np.ndarray:
+    """30-bit Morton code from points normalized to [0,1)^3. xyz01: (..., 3)."""
+    q = np.clip(xyz01 * 1024.0, 0.0, 1023.0).astype(np.uint32)
+    return ((_expand_bits_10(q[..., 0]) << 2) | (_expand_bits_10(q[..., 1]) << 1)
+            | _expand_bits_10(q[..., 2])).astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# Geometry helpers
+# ---------------------------------------------------------------------------
+
+def half_area(extent: np.ndarray) -> np.ndarray:
+    """Half the surface area of an AABB with the given extents (..., 3): the
+    SAH cost metric (ref: MyMath.cs HalvedArea)."""
+    return extent[..., 0] * (extent[..., 1] + extent[..., 2]) + extent[..., 1] * extent[..., 2]
+
+
+def triangle_area(p0: np.ndarray, p1: np.ndarray, p2: np.ndarray) -> np.ndarray:
+    return 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0), axis=-1)
 
 
 def normalize(v: np.ndarray, eps: float = 1e-20) -> np.ndarray:

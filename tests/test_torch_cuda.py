@@ -493,13 +493,68 @@ def test_fma_on_card_rounds_once(dev):
     assert not np.array_equal(got, a * b + c)
 
 
-def _steps_equal(sc, o, d, t_max):
-    got, steps = kern.trace_closest_steps(sc, o, d, t_max)
-    want, want_steps = plain.trace_closest_steps(sc, o, d, t_max)
+def _steps_equal(sc, o, d, t_max, max_steps=1 << 30):
+    got, steps = kern.trace_closest_steps(sc, o, d, t_max, max_steps=max_steps)
+    want, want_steps = plain.trace_closest_steps(sc, o, d, t_max, max_steps=max_steps)
     assert torch.equal(steps, want_steps)
     for k in ("t", "slot", "u", "v"):
         assert torch.equal(getattr(got, k), getattr(want, k)), k
     return steps
+
+
+@pytest.mark.parametrize("cap", [0, 1, 7, 64, 320])
+@pytest.mark.parametrize("kind", ["incoherent", "dead_and_zero", "inside_leaves", "from_1e8"])
+def test_capped_steps_kernel_matches_plain(dev, scenes, kind, cap):
+    """trace_closest_steps with max_steps: steps, t, slot, u and v equal
+    to the plain walk's with the same cap on every ray, none above it."""
+    _, sc, _ = scenes
+    steps = _steps_equal(sc, *_rays_of(kind, sc, 1 << 16, 34, dev), max_steps=cap)
+    assert int(steps.max()) <= cap
+    with pytest.raises(ValueError):
+        kern.trace_closest_steps(sc, *_rays_of(kind, sc, 8, 34, dev), max_steps=-1)
+
+
+def test_device_flatten_on_card_matches_host(dev, scenes):
+    """flatten_triangles_device on the card: every field bit-equal to the
+    host flatten (the cross product's fused products and the norm's
+    correctly rounded root as on the CPU, no contracted multiply-add), and
+    the card's build holds its tables."""
+    from idkengine_tpu_torch.bvh.flatten import flatten_triangles, flatten_triangles_device
+
+    db, sc, _ = scenes
+    args = (db._slot_tri, db._verts, db._indices, db._normals, db._uvs, db._tri_mat)
+    host = flatten_triangles(*args)
+    got = flatten_triangles_device(*args, device=dev)
+    for f, k in (("p0", "tri_p0"), ("e1", "tri_e1"), ("e2", "tri_e2"), ("n_packed", "tri_n"),
+                 ("uv", "tri_uv"), ("mat", "tri_mat"), ("geom_normal", "tri_gn")):
+        want = torch.from_numpy(np.asarray(getattr(host, f)).astype(
+            np.int64 if f == "n_packed" else getattr(host, f).dtype))
+        assert getattr(got, f).device.type == "cuda"
+        assert torch.equal(getattr(got, f).cpu(), want), f
+        assert torch.equal(getattr(sc, k).cpu(), want.to(getattr(sc, k).dtype)), k
+
+
+def test_call_site_buckets_on_card(dev, scenes):
+    """Each tagged launch's hand kernel lands in its call site's bucket in
+    torch.profiler's trace of the card; an untagged any-hit launch in
+    trace_other."""
+    from idkengine_tpu_torch import profiling
+    from idkengine_tpu_torch.ops import two_phase
+
+    _, sc, _ = scenes
+    o, d, t_max = _rays_of("incoherent", sc, 1 << 16, 35, dev)
+    cases = {"primary": lambda: kern.trace_closest(sc, o, d, t_max, tag="pri"),
+             "bounce_closest": lambda: two_phase.two_phase_closest(sc, o, d, t_max, tag="bnc"),
+             "nee": lambda: kern.trace_any(sc, o, d, t_max, max_steps=64, tag="enva"),
+             "trace_other": lambda: kern.trace_any(sc, o, d, t_max)}
+    for bucket, fn in cases.items():
+        fn()
+        kernels = profiling.profile_kernels(fn)
+        hand = [(n, s, ms) for n, s, ms in kernels
+                if any(k in n for k in profiling.HAND_TRACE_KERNELS)]
+        assert hand, bucket
+        by = profiling.bucket_times(hand, ndigits=None)
+        assert set(by) == {bucket, "total_device"}, (bucket, by)
 
 
 @pytest.mark.parametrize("kind", ["incoherent", "dead_and_zero", "inside_leaves", "from_1e8"])

@@ -324,9 +324,20 @@ def test_pass_scope_records_timings():
     assert len(profiling._timings["test/pass"]) == 3
     profiling.log_report()
     assert profiling.capture_device_profile(lambda: x * 2) == {}  # no card: no device time
-    assert profiling.bucket("void trace_kernel<true>(float4 const*)") == "nee"
+    # a hand kernel outside any call-site range is the JAX package's untagged
+    # trace (pt_*_x): trace_other, closest or any hit; inside one, the
+    # range's bucket by the JAX package's rule
+    assert profiling.bucket("void trace_kernel<true>(float4 const*)") == "trace_other"
     assert profiling.bucket("void trace_kernel<false>(float4 const*)") == "trace_other"
-    assert profiling.bucket("_ZN12_GLOBAL__N_112trace_kernelILb1EEEvPK6float4") == "nee"
+    assert profiling.bucket("_ZN12_GLOBAL__N_112trace_kernelILb1EEEvPK6float4") == "trace_other"
+    for tag, any_hit, want in (("pri", False, "primary"), ("pria", False, "primary"),
+                               ("bnc", False, "bounce_closest"), ("nee", True, "nee"),
+                               ("enva", True, "nee"), ("neea", False, "trace_other"),
+                               ("", True, "trace_other"), ("spmd", False, "trace_other")):
+        site = profiling.call_site_name(any_hit, tag)
+        assert profiling.range_bucket(site) == want, site
+        assert profiling.bucket_times([("void trace_kernel<false>(float4 const*)", site, 2.0)]) \
+            == {want: 2.0, "total_device": 2.0}
     assert profiling.bucket("scatter_max_kernel") == "voxelize"
     profiling.reset()
     assert profiling.report() == {}

@@ -5,7 +5,8 @@ Capped traces (`max_steps` 1, 7 and 64) on the Cornell box and the small
 atrium: the port's plain traces and a plain model of the capped kernel's
 walk (test_torch_walks.record_walk) against the JAX package's
 `trace_closest` and `trace_any` with `max_steps`, bit for bit in t, slot,
-u, v and occlusion. Capped path-traced frames of the 40x24 atrium against
+u, v and occlusion; `trace_closest_steps` with `max_steps` 7 and 64 in its
+steps too. Capped path-traced frames of the 40x24 atrium against
 the JAX path tracer without the packet tracer (RMSE <= 1e-3, equal ray
 counts), tiled as JAX tiles them; a tiled frame is bit-equal to the untiled
 one, with the rays sorted."""
@@ -80,6 +81,23 @@ def test_capped_traces_match_jax(scene, cap):
     full = packet_trace.trace_closest(sc, to, td, tt)
     if cap == 1:
         assert (got.slot.numpy() >= 0).sum() < (full.slot.numpy() >= 0).sum()
+
+
+@pytest.mark.parametrize("cap", (7, 64))
+def test_capped_steps_match_jax(scene, cap):
+    """trace_closest_steps with max_steps: steps and hits bit for bit
+    against the JAX package's, each ray's steps at most the cap."""
+    jsc, sc = scene
+    o, d, t_max, _ = _rays(sc, 1024, 13)
+    want, want_steps = j_trace.trace_closest_steps(jsc, jnp.asarray(o), jnp.asarray(d),
+                                                   jnp.asarray(t_max), max_steps=cap)
+    got, steps = packet_trace.trace_closest_steps(sc, torch.from_numpy(o), torch.from_numpy(d),
+                                                  torch.from_numpy(t_max), max_steps=cap)
+    np.testing.assert_array_equal(steps.numpy(), np.asarray(want_steps))
+    for k in ("t", "slot", "u", "v"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(want, k)),
+                                      err_msg=k)
+    assert int(steps.max()) <= cap
 
 
 def test_cap_zero_and_the_default(scene):

@@ -19,6 +19,7 @@ from idkengine_tpu.render import sampling as j_smp  # noqa: E402
 from idkengine_tpu.render import shading as j_shd  # noqa: E402
 from idkengine_tpu.render import tonemap as j_tm  # noqa: E402
 from idkengine_tpu.utils import compression as j_comp  # noqa: E402
+from idkengine_tpu.utils import mathutil as j_mu  # noqa: E402
 from idkengine_tpu.utils import rng as j_rng  # noqa: E402
 from idkengine_tpu_torch.ops import intersect as t_isect  # noqa: E402
 from idkengine_tpu_torch.render import camera as t_cam  # noqa: E402
@@ -26,6 +27,7 @@ from idkengine_tpu_torch.render import sampling as t_smp  # noqa: E402
 from idkengine_tpu_torch.render import shading as t_shd  # noqa: E402
 from idkengine_tpu_torch.render import tonemap as t_tm  # noqa: E402
 from idkengine_tpu_torch.utils import compression as t_comp  # noqa: E402
+from idkengine_tpu_torch.utils import mathutil as t_mu  # noqa: E402
 from idkengine_tpu_torch.utils import rng as t_rng  # noqa: E402
 
 FLOAT_TOL = 1e-6
@@ -189,3 +191,71 @@ def test_tonemap(kw):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     np.testing.assert_array_equal(t_tm.to_uint8(t_tm.tonemap(_t(img))),
                                   j_tm.to_uint8(j_tm.tonemap(jnp.asarray(img))))
+
+
+def _helper_case(name, rs):
+    """(the JAX package's result, the port's) of one helper on seeded inputs."""
+    n = 4096
+    if name == "pack_r11g11b10":
+        v = (rs.random((n, 3)) * 100).astype(np.float32)
+        v[:7] = 0.0
+        return j_comp.pack_r11g11b10(v), t_comp.pack_r11g11b10(v)
+    if name == "unpack_r11g11b10":
+        u = j_comp.pack_r11g11b10((rs.random((n, 3)) * 100).astype(np.float32))
+        u[:3] = 0
+        return (_np(j_comp.unpack_r11g11b10(jnp.asarray(u), jnp)),
+                t_comp.unpack_r11g11b10(_t(u.astype(np.int64)), torch).numpy())
+    if name == "unpack_r11g11b10 numpy":
+        u = j_comp.pack_r11g11b10((rs.random((n, 3)) * 100).astype(np.float32))
+        return j_comp.unpack_r11g11b10(u), t_comp.unpack_r11g11b10(u)
+    if name == "compress_normal_xp":
+        v = rs.standard_normal((n, 3)).astype(np.float32)
+        v[:5] = 0.0
+        return (_np(j_comp.compress_normal_xp(jnp.asarray(v), jnp)).astype(np.int64),
+                t_comp.compress_normal_xp(_t(v), torch).numpy())
+    if name == "compress_normal_xp numpy":
+        v = _unit(rs, n)
+        return j_comp.compress_normal_xp(v), t_comp.compress_normal_xp(v)
+    if name == "r2_sequence":
+        idx = rs.integers(0, 1 << 20, n)
+        return j_mu.r2_sequence(idx), t_mu.r2_sequence(idx)
+    if name == "morton_encode":
+        p = rs.random((n, 3)) * 1.2 - 0.1
+        return j_mu.morton_encode(p), t_mu.morton_encode(p)
+    if name == "half_area":
+        e = rs.random((n, 3)).astype(np.float32)
+        return j_mu.half_area(e), t_mu.half_area(e)
+    if name == "triangle_area":
+        p = rs.standard_normal((3, n, 3)).astype(np.float32)
+        return j_mu.triangle_area(*p), t_mu.triangle_area(*p)
+    idx = rs.integers(0, 1 << 16, n).astype(np.int32)
+    if name == "r2":
+        return _np(j_rng.r2(jnp.asarray(idx))), t_rng.r2(_t(idx)).numpy()
+    if name == "r2_rotated":
+        rot = rs.random((n, 2)).astype(np.float32)
+        return (_np(j_rng.r2_rotated(jnp.asarray(idx), jnp.asarray(rot))),
+                t_rng.r2_rotated(_t(idx), _t(rot)).numpy())
+    if name == "interleaved_gradient_noise":
+        px, py = rs.integers(0, 3840, (2, n)).astype(np.int32)
+        return (_np(j_rng.interleaved_gradient_noise(jnp.asarray(px), jnp.asarray(py), 37)),
+                t_rng.interleaved_gradient_noise(_t(px), _t(py), 37).numpy())
+    assert name == "uniform_sphere"
+    u = rs.random((n, 2)).astype(np.float32)
+    return _np(j_smp.uniform_sphere(jnp.asarray(u))), t_smp.uniform_sphere(_t(u)).numpy()
+
+
+@pytest.mark.parametrize("name", [
+    "pack_r11g11b10", "unpack_r11g11b10", "unpack_r11g11b10 numpy", "compress_normal_xp",
+    "compress_normal_xp numpy", "r2_sequence", "morton_encode", "half_area", "triangle_area",
+    "r2", "r2_rotated", "interleaved_gradient_noise", "uniform_sphere"])
+def test_helpers_match_jax(name):
+    """The helpers the port adds for the JAX package's public names: the
+    same dtype and shape; integers bit for bit, floats within FLOAT_TOL
+    (uniform_sphere's sin and cos may differ in the last place)."""
+    want, got = _helper_case(name, np.random.default_rng(11))
+    assert got.shape == want.shape
+    if want.dtype.kind in "iu":
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert got.dtype == want.dtype, (got.dtype, want.dtype)
+        np.testing.assert_allclose(got, want, atol=FLOAT_TOL, rtol=0)
