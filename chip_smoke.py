@@ -124,17 +124,22 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      trace against the plain trace, and a path-traced frame at phase 5's
      settings timed beside phase 5's;
  20. the instanced frame at full width: its primaries, shadow rays and
-     first bounce batch through the two-level kernel path (1 + 16 launches
-     a call) and the plain two-level path, t, slot, u, v, the instance id
-     and occlusion under phase 4's rule (the same hit mask, slot and
-     instance equal on AGREE of the rays, t, u, v bit-equal there: the trace
-     kernel visits near children first, so a hit whose t falls below its
-     box's entry distance can be culled there and kept by the plain DFS
-     walk), and through the capped kernel (the plain walk's order) at
-     CAP_LOW equal on every ray; the share of primaries on an instance;
+     first bounce batch through the fused two-level kernel (one launch a
+     call), bit-equal on every ray (t, slot, u, v, the instance id;
+     occlusion) to the launch loop over the one-level kernels (1 + 16
+     launches a call, ops/trace.py:two_level_closest / two_level_any), both
+     timed in turns, and against the plain two-level path: t, slot, u, v,
+     the instance id and occlusion under phase 4's rule (the same hit mask,
+     slot and instance equal on AGREE of the rays, t, u, v bit-equal there:
+     the trace kernel visits near children first, so a hit whose t falls
+     below its box's entry distance can be culled there and kept by the
+     plain DFS walk), and at CAP_LOW (the capped walk, the plain walk's
+     order) equal on every ray; the share of primaries on an instance;
      PathTracer(instances=...) at 1920x1080, depth 2, sorting on, roulette
      off: warm-up, timed frames with the counts reset just before,
-     launches a frame, one profiled frame; the same frame once at
+     launches a frame (DEPTH closest and DEPTH any-hit two-level launches,
+     no one-level launch), one profiled frame, with no copy or synchronize
+     inside a two-level call's range; the same frame once at
      max_trace_steps = CAP_LOW; set_instance_transform moves instance 0 out
      of view (its id leaves the primaries, no BLAS is rebuilt, the TLAS
      is); a small instanced scene (the Cornell box and two spheres, 48x48)
@@ -156,8 +161,9 @@ Phases (any failure raises and ends the run with a nonzero exit code):
      dropped; set_mode(RASTERIZER): the deferred frame with VXGI 256^3
      timed, its trace calls and scatter-max call against their plain
      versions, one frame profiled; add_model_runtime of phase 20's sphere
-     and a frame through the two-level traces (1 + 1 launches a call, the
-     primaries against the plain two-level trace); pick_entity at five
+     and a frame through the two-level kernel (one launch a call, the
+     primaries against the launch loop and the plain two-level trace);
+     pick_entity at five
      pixels against the card's primary hits; three recorded frames through
      save / load / replay; save_config / load_config; then a small Engine
      (an 8000-triangle atrium as glTF, 48x32) on the card against the CPU in
@@ -235,8 +241,8 @@ KERNELS_WHERE = {  # route, source and the Pallas kernels each wrapper's kernel 
     "trace_any_capped": {"route": "cuda", "source": "idkengine_tpu_torch/csrc/trace.cu",
                          "replaces": "idkengine_tpu/ops/trace.py:279"},
     # the two-level traces: XLA loops in the JAX package (no Pallas kernel),
-    # the trace kernel (or the capped one) once for the static scene and once
-    # an instance here
+    # one launch of csrc/trace.cu's two_level_kernel (two_level_capped_kernel
+    # with a cap) a call here
     "trace_closest_two_level": {"route": "cuda", "source": "idkengine_tpu_torch/csrc/trace.cu",
                                 "replaces": "idkengine_tpu/ops/trace.py:177"},
     "trace_any_two_level": {"route": "cuda", "source": "idkengine_tpu_torch/csrc/trace.cu",
@@ -264,7 +270,8 @@ FAR_ORIGIN = 1e6  # the G-buffer puts sky pixels at o + d * 1e8 (render/gbuffer.
 VXGI_RES = 256  # bench.py:255's record and the reference's default
 DEFERRED_FRAMES = 4
 HAND_KERNELS = ("trace_kernel", "trace_steps_kernel", "trace_capped_kernel",  # __global__
-                "scatter_max_kernel", "phase_a_kernel", "phase_b_kernel",  # names in csrc/
+                "two_level_kernel", "two_level_capped_kernel",  # names in csrc/
+                "scatter_max_kernel", "phase_a_kernel", "phase_b_kernel",
                 "probe_slab_kernel", "probe_vpu_kernel", "probe_form_kernel", "probe_reduce_kernel",
                 "probe_dual_kernel", "probe_prims_kernel")
 PT_PASSES = ("pt_sample", "denoise", "bloom", "tonemap")  # PathTracerPipeline's ranges
@@ -2418,9 +2425,14 @@ def _scene_bytes(scene) -> int:
 
 def compare_two_level(kind, static, iset, o, d, t_max, card, label, max_steps=None):
     """One two-level trace (kind "trace_closest" or "trace_any") through the
-    kernels against the plain two-level trace on one batch (check_two_level,
-    exact with max_steps); its launches, time and bound. Returns (the kernel
-    path's result, its numbers for the kernels' line)."""
+    fused kernel: one launch, bit-equal on every ray to the launch loop
+    over the one-level kernels (ops/trace.py:two_level_closest /
+    two_level_any), and against the plain two-level trace
+    (check_two_level, exact with max_steps); the kernel and the loop timed
+    in turns (kernel, loop, loop, kernel), the bound and the plain time.
+    Returns (the kernel's result, its numbers for the kernels' line)."""
+    import torch
+
     from idkengine_tpu_torch.ops import packet_trace as kern
     from idkengine_tpu_torch.ops import trace as plain
 
@@ -2432,24 +2444,48 @@ def compare_two_level(kind, static, iset, o, d, t_max, card, label, max_steps=No
     got = getattr(kern, name)(*args, **kw)
     torch_sync(o.device)
     launches = getattr(kern, name).launches
-    if launches != 1 + len(iset.scenes):
-        raise AssertionError(f"{name} made {launches} launches, not {1 + len(iset.scenes)}")
+    if launches != 1 or kern._trace_launches():
+        raise AssertionError(f"{name} made {launches} launches and "
+                             f"{kern._trace_launches()} one-level launches, not 1 and 0")
+    if kind == "trace_closest":
+        def loop():
+            return plain.two_level_closest(kern.trace_closest, static, iset.scenes, iset.inv,
+                                           iset.boxes, o, d, t_max, iset.slot_off, max_steps)
+        (ref, ref_inst), (hit, inst) = loop(), got
+        same = all(torch.equal(getattr(hit, k), getattr(ref, k)) for k in ("t", "slot", "u", "v"))
+        if not (same and torch.equal(inst, ref_inst)):
+            raise AssertionError(f"{name}, {label}: the fused kernel differs from the launch "
+                                 "loop")
+    else:
+        def loop():
+            return plain.two_level_any(kern.trace_any, static, iset.scenes, iset.inv, o, d, t_max,
+                                       max_steps)
+        if not torch.equal(got, loop()):
+            raise AssertionError(f"{name}, {label}: the fused kernel's occlusion differs from "
+                                 "the launch loop's")
     t0 = time.perf_counter()
     want = getattr(plain, name)(*args, **kw)
     torch_sync(o.device)
     plain_ms = (time.perf_counter() - t0) * 1e3
     n_diff, err = check_two_level(kind, got, want, f"{name}, {label}", max_steps is not None)
-    ms = cuda_time_ms(lambda: getattr(kern, name)(*args, **kw), 10)
+
+    def fused():
+        return getattr(kern, name)(*args, **kw)
+    ms_a, loop_a = cuda_time_ms(fused, 10), cuda_time_ms(loop, 10)
+    loop_b, ms_b = cuda_time_ms(loop, 10), cuda_time_ms(fused, 10)
     r = o.shape[0]
-    scenes = {id(s): s for s in iset.scenes}.values()
+    scenes = {s.tri_vec.data_ptr(): s for s in iset.scenes}.values()
     nbytes = (r * 28 + r * (20 if kind == "trace_closest" else 1) + _scene_bytes(static)
               + sum(_scene_bytes(s) for s in scenes))
-    m = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-             bound_by="bytes", library_ms=None)
+    m = dict(max_abs_err=err, ms=(ms_a + ms_b) / 2, plain_ms=plain_ms,
+             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+             loop_ms=(loop_a + loop_b) / 2)
     share = ((got[1] >= 0) if kind == "trace_closest" else got).float().mean().item()
     cap = "" if max_steps is None else f", max_steps {max_steps}"
-    log(f"# {name}, {label}{cap} ({r} rays): {launches} launches a call, kernels {ms:.4f} ms, "
-        f"bound {m['bound_ms']:.4f} ms, plain {plain_ms:.1f} ms; "
+    log(f"# {name}, {label}{cap} ({r} rays): 1 launch a call, fused kernel {ms_a:.4f} / "
+        f"{ms_b:.4f} ms, launch loop ({1 + len(iset.scenes)} launches) {loop_a:.4f} / "
+        f"{loop_b:.4f} ms (in turns), bound {m['bound_ms']:.4f} ms, plain {plain_ms:.1f} ms; "
+        "bit-equal to the loop on every ray; against the plain trace "
         + (f"slot or instance differ on {n_diff} rays, t, u, v equal elsewhere, max |t "
            f"diff| {err:g}; on an instance {share:.4f}"
            if kind == "trace_closest" else f"occlusion equal on every ray; occluded {share:.4f}")
@@ -2553,14 +2589,19 @@ def phase_instanced(db, cam, dev, card, frame_ref):
     if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()) or \
             not img.std().item() > 0:
         raise AssertionError("the instanced image is not a finite, non-flat array")
-    for name in ("trace_closest_two_level", "trace_any_two_level"):
-        if launches["pathtracer_instanced"][name] == 0:
-            raise AssertionError(f"{name} was not launched on the instanced frame")
+    if per_frame != {"trace_closest_two_level": DEPTH, "trace_any_two_level": DEPTH}:
+        raise AssertionError(f"the instanced frame made {per_frame} launches a frame, not "
+                             f"{DEPTH} of each two-level trace and no other")
     log(f"# instanced frame: {frame_ms:.2f} ms/frame (phase 5's {frame_ref['ms']:.2f}), "
         f"{rays / TIMED_FRAMES / 1e6:.3f} Mrays/frame, {WIDTH}x{HEIGHT} depth {DEPTH}, "
         f"{INSTANCE_COUNT} instances; launches a frame {per_frame}; on {card}")
     profile_frame(lambda: pt.render_frame(cam), "instanced frame",
                   lambda k: k.startswith(PT_RANGES))
+    # every trace call of the instanced frame is a two-level call
+    waits = host_waits(lambda: pt.render_frame(cam), inside=("pt_closest_", "pt_any_"))
+    log(f"# instanced frame: copies and synchronizes inside a two-level call's range {waits}")
+    if waits:
+        raise AssertionError(f"a two-level call copied or waited: {waits}")
     del pt
 
     capped = PathTracer(db.device_scene, db.materials.soa(), db.lights.soa(), WIDTH, HEIGHT,
@@ -2572,10 +2613,11 @@ def phase_instanced(db, cam, dev, card, frame_ref):
     torch_sync(dev)
     capped_ms = (time.perf_counter() - t0) * 1e3
     launches["pathtracer_instanced_cap"] = read_launch_counts()
+    counts = {k: v for k, v in launches["pathtracer_instanced_cap"].items() if v}
     if not bool(torch.isfinite(img).all()) or \
-            launches["pathtracer_instanced_cap"]["trace_closest_capped"] == 0:
-        raise AssertionError("the capped instanced frame is not finite or launched no capped "
-                             "kernel")
+            counts != {"trace_closest_two_level": DEPTH, "trace_any_two_level": DEPTH}:
+        raise AssertionError(f"the capped instanced frame is not finite or made other launches "
+                             f"than {DEPTH} of each two-level trace: {counts}")
     log(f"# instanced frame at max_trace_steps {CAP_LOW}: {capped_ms:.2f} ms (one frame, "
         f"compiled kernels warm); launches {launches['pathtracer_instanced_cap']}; on {card}")
     del capped
@@ -3112,13 +3154,13 @@ def phase_app(dev, card, seed, ref_frame, timings):
     inst_ms = (time.perf_counter() - t0) * 1e3
     launches["engine_instanced"] = read_launch_counts()
     tails = DEPTH * sum("tail" in c for c in TEXTURED_CALLS)  # the any-hit calls a frame
-    want = {"trace_closest_two_level": 2 * (DEPTH * len(TEXTURED_CALLS) - tails),
-            "trace_any_two_level": 2 * tails}
+    want = {"trace_closest_two_level": DEPTH * len(TEXTURED_CALLS) - tails,
+            "trace_any_two_level": tails}
     for name, n in want.items():
         if launches["engine_instanced"][name] != n:
             raise AssertionError(f"the instanced Engine frame made "
                                  f"{launches['engine_instanced'][name]} {name} launches, not "
-                                 f"{n} (1 + 1 a call)")
+                                 f"{n} (one a call)")
     iset = db.instance_set()
     (hit, hit_inst), _ = compare_two_level("trace_closest", db.device_scene, iset, *two_level[0],
                                            card, "Engine primaries")
@@ -3292,19 +3334,26 @@ def phase_shard_parts(spt, cam, dev, card):
                 profile=sharded), whole
 
 
-def host_waits(fn) -> dict:
+def host_waits(fn, inside=None) -> dict:
     """The CUDA runtime calls made while fn() runs that can wait for the
     card (synchronizes, copies; torch.profiler's host events): name ->
-    count."""
+    count; with `inside` (name prefixes of profiler ranges), only those
+    made inside such a range, which must have been opened."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
-    waits = {e.key: e.count for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CPU
-             and any(w in e.key for w in ("Synchronize", "cudaMemcpy"))}
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    ranges = [e.time_range for e in events if inside and e.name.startswith(inside)]
+    if inside and not ranges:
+        raise AssertionError(f"fn() opened no range named {inside}")
+    waits = {}
+    for e in events:
+        if any(w in e.name for w in ("Synchronize", "cudaMemcpy")) and (not inside or any(
+                r.start <= e.time_range.start and e.time_range.end <= r.end for r in ranges)):
+            waits[e.name] = waits.get(e.name, 0) + 1
     torch.cuda.synchronize()
     return waits
 

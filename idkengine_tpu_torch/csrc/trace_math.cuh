@@ -29,11 +29,14 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
 };
 
-__device__ __forceinline__ float inv_clamped(float d) {
+// The direction component with |d| raised to at least 1e-20, sign kept (d
+// == -0 counts as +): ops/trace.py:inverse_direction's and _box_prune's.
+__device__ __forceinline__ float clamped_dir(float d) {
   const float tiny = 1e-20f;
-  float c = fabsf(d) < tiny ? (d < 0.0f ? -tiny : tiny) : d;
-  return 1.0f / c;
+  return fabsf(d) < tiny ? (d < 0.0f ? -tiny : tiny) : d;
 }
+
+__device__ __forceinline__ float inv_clamped(float d) { return 1.0f / clamped_dir(d); }
 
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
                                         const float* __restrict__ d, int i) {

@@ -15,9 +15,11 @@ stackless binary walk, as the JAX package's XLA traces do
 kernels over the same threaded records, launched by `_closest_capped` and
 `_any_capped`, whose counts are their own. `trace_closest_two_level` and
 `trace_any_two_level` are the JAX package's two-level traces
-(`idkengine_tpu/ops/trace.py:177, 227`) over these wrappers: one launch
-for the static scene and one an instance, each counted by the wrapper
-that makes it and by the two-level function. Each entry point but the
+(`idkengine_tpu/ops/trace.py:177, 227`): on the card one launch of the
+two-level kernel (csrc/trace.cu, uncapped or capped) walks the static
+scene and every instance's BLAS, bit-equal to the per-instance loop
+`ops/trace.py:two_level_closest/two_level_any` over `trace_closest` /
+`trace_any`, which stays the yardstick of the tests. Each entry point but the
 steps trace takes the JAX package's call-site `tag` (`pri`, `bnc`, `nee`,
 `env`, an `a` after it for the alpha rounds, `spmd`) and launches inside
 the profiler range that its Pallas kernel's name would carry
@@ -32,7 +34,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-from functools import partial
 
 import torch
 
@@ -48,6 +49,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # the trace kernel's stack entries a ray: csrc/trace.cu idk_trace_stack_limit()
 WIDE_STACK_LIMIT = 96
+# csrc/trace.cu's TWO_LEVEL_MAX_BLAS and TWO_LEVEL_MAX_INSTANCES: the
+# distinct BLASes (the static scene's included) and instances a two-level
+# call takes
+TWO_LEVEL_MAX_BLAS = 64
+TWO_LEVEL_MAX_INSTANCES = 1024
 
 _lib = None
 
@@ -80,6 +86,16 @@ def bind_library(path: str) -> ctypes.CDLL:
         lib.idk_trace_closest_capped.argtypes = [vp] * 9 + [ci, ci, ci, vp]
         lib.idk_trace_any_capped.restype = ci
         lib.idk_trace_any_capped.argtypes = [vp] * 6 + [ci, ci, ci, vp]
+    if hasattr(lib, "idk_trace_closest_two_level"):  # interface 6 on
+        for fn in (lib.idk_two_level_max_blas, lib.idk_two_level_max_instances,
+                   lib.idk_two_level_tables_bytes):
+            fn.restype = ci
+            fn.argtypes = []
+        lib.idk_trace_closest_two_level.restype = ci
+        lib.idk_trace_closest_two_level.argtypes = [vp] * 9 + [ci, ci, ci] + [vp] * 3 + [
+            ci, ci, vp, vp]
+        lib.idk_trace_any_two_level.restype = ci
+        lib.idk_trace_any_two_level.argtypes = [vp] * 5 + [ci, ci, ci, vp, ci, ci, vp, vp]
     return lib
 
 
@@ -90,9 +106,15 @@ def _load():
         if lib.idk_trace_stack_limit() != WIDE_STACK_LIMIT:
             raise RuntimeError(f"{TRACE_SOURCE} holds {lib.idk_trace_stack_limit()} stack "
                                f"entries a ray, the wrapper expects {WIDE_STACK_LIMIT}")
-        if lib.idk_trace_interface() < 5:
-            raise RuntimeError(f"{TRACE_SOURCE} has no capped steps kernel (interface "
+        if lib.idk_trace_interface() < 6:
+            raise RuntimeError(f"{TRACE_SOURCE} has no two-level kernel (interface "
                                f"{lib.idk_trace_interface()})")
+        limits = (lib.idk_two_level_max_blas(), lib.idk_two_level_max_instances(),
+                  lib.idk_two_level_tables_bytes())
+        want = (TWO_LEVEL_MAX_BLAS, TWO_LEVEL_MAX_INSTANCES, ctypes.sizeof(BlasTables))
+        if limits != want:
+            raise RuntimeError(f"{TRACE_SOURCE}'s two-level tables (BLASes, instances, "
+                               f"bytes) are {limits}, the wrapper's {want}")
         _lib = lib
     return _lib
 
@@ -139,16 +161,31 @@ def _check_tri_vec(scene: SceneArrays, dev):
         raise ValueError(f"bvh4_leaf_bits must lie in 5..30, got {scene.bvh4_leaf_bits}")
 
 
+def _check_wide_tables(scene: SceneArrays, dev):
+    """The trace kernel's tables: the wide records and tri_vec on `dev`."""
+    _check_tensors(dev, {"bvh4_nodes": (scene.bvh4_nodes, torch.int32)})
+    w = scene.bvh4_nodes
+    if w.dim() != 2 or w.shape[1] != 32 or w.shape[0] < 1 or w.data_ptr() % 128:
+        raise ValueError("bvh4_nodes must be (M,32) int32 records, 128-byte aligned")
+    _check_tri_vec(scene, dev)
+
+
+def _check_thread_tables(scene: SceneArrays, dev):
+    """The steps and capped kernels' tables: the threaded records and
+    tri_vec on `dev`."""
+    _check_tensors(dev, {"bvh_thread": (scene.bvh_thread, torch.int32)})
+    n = scene.bvh_thread
+    if n.dim() != 2 or n.shape[1] != 8 or n.shape[0] < 1 or n.data_ptr() % 32:
+        raise ValueError("bvh_thread must be (N,8) int32 records, 32-byte aligned")
+    _check_tri_vec(scene, dev)
+
+
 def _check_wide(scene: SceneArrays, o, d, t_max) -> tuple[torch.Tensor, int]:
     """Validate the trace kernel's inputs; returns (t_max as an (R,) float32
     tensor, stack entries). Raises where the wide tree is too deep for the
     kernel's stack."""
     t_max = _check_rays(o, d, t_max)
-    _check_tensors(o.device, {"bvh4_nodes": (scene.bvh4_nodes, torch.int32)})
-    w = scene.bvh4_nodes
-    if w.dim() != 2 or w.shape[1] != 32 or w.shape[0] < 1 or w.data_ptr() % 128:
-        raise ValueError("bvh4_nodes must be (M,32) int32 records, 128-byte aligned")
-    _check_tri_vec(scene, o.device)
+    _check_wide_tables(scene, o.device)
     return t_max, wide_stack_entries(scene)
 
 
@@ -156,11 +193,7 @@ def _check_thread(scene: SceneArrays, o, d, t_max) -> torch.Tensor:
     """Validate the steps kernel's inputs; returns t_max as an (R,) float32
     tensor."""
     t_max = _check_rays(o, d, t_max)
-    _check_tensors(o.device, {"bvh_thread": (scene.bvh_thread, torch.int32)})
-    n = scene.bvh_thread
-    if n.dim() != 2 or n.shape[1] != 8 or n.shape[0] < 1 or n.data_ptr() % 32:
-        raise ValueError("bvh_thread must be (N,8) int32 records, 32-byte aligned")
-    _check_tri_vec(scene, o.device)
+    _check_thread_tables(scene, o.device)
     return t_max
 
 
@@ -322,39 +355,166 @@ def _any_capped(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
 
 
 def _trace_launches() -> int:
+    """The one-level trace kernels' launches (trace_closest, trace_any and
+    their capped walks)."""
     return (trace_closest.launches + trace_any.launches + _closest_capped.launches
             + _any_capped.launches)
+
+
+class BlasTables(ctypes.Structure):
+    """csrc/trace.cu's BlasTables, which a two-level call passes by value:
+    the distinct BLASes' tables (the static scene's first) and each
+    instance's BLAS."""
+
+    _fields_ = [("nodes", ctypes.c_void_p * TWO_LEVEL_MAX_BLAS),
+                ("tri_vec", ctypes.c_void_p * TWO_LEVEL_MAX_BLAS),
+                ("leaf_bits", ctypes.c_int * TWO_LEVEL_MAX_BLAS),
+                ("blas_of", ctypes.c_uint16 * TWO_LEVEL_MAX_INSTANCES)]
+
+
+def _check_instances(inst_scenes, inst_inv, inst_boxes, slot_off, dev):
+    """Validate an instance set's tensors: inv (I,3,4) and boxes (I,2,3)
+    float32, slot_off (I,) int32 or None, I == len(inst_scenes), all on
+    `dev` and contiguous."""
+    n = len(inst_scenes)
+    f32 = torch.float32
+    tensors = {"inst_inv": (inst_inv, f32), "inst_boxes": (inst_boxes, f32)}
+    shapes = {"inst_inv": (n, 3, 4), "inst_boxes": (n, 2, 3)}
+    if slot_off is not None:
+        tensors["slot_off"] = (slot_off, torch.int32)
+        shapes["slot_off"] = (n,)
+    for name, want in shapes.items():
+        if tuple(tensors[name][0].shape) != want:
+            raise ValueError(f"{name} must be {want} for {n} instances, got "
+                             f"{tuple(tensors[name][0].shape)}")
+    _check_tensors(dev, tensors)
+    for s in inst_scenes:
+        if s.device != dev:
+            raise ValueError(f"an instance's scene is on {s.device}, the rays on {dev}")
+
+
+def _two_level_tables(static_scene: SceneArrays, inst_scenes, capped: bool):
+    """(BlasTables, distinct BLASes, stack entries) of a two-level call:
+    the static scene's and each distinct instance BLAS's tables (the wide
+    records, or the threaded ones when capped), each validated as the
+    one-level kernels validate theirs; instances that share a model's
+    tables share a BLAS. The stack entries are the deepest wide tree's.
+    Raises beyond the kernel's TWO_LEVEL_MAX_INSTANCES and
+    TWO_LEVEL_MAX_BLAS."""
+    if len(inst_scenes) > TWO_LEVEL_MAX_INSTANCES:
+        raise ValueError(f"{len(inst_scenes)} instances; the two-level kernel takes at most "
+                         f"{TWO_LEVEL_MAX_INSTANCES}")
+    tables = BlasTables()
+    index: dict[tuple, int] = {}
+    scenes = []
+    blas_of = []
+    for s in (static_scene, *inst_scenes):
+        nodes = s.bvh_thread if capped else s.bvh4_nodes
+        key = (nodes.data_ptr(), s.tri_vec.data_ptr(), s.bvh4_leaf_bits)
+        if key not in index:
+            if len(index) == TWO_LEVEL_MAX_BLAS:
+                raise ValueError(f"more than {TWO_LEVEL_MAX_BLAS} distinct BLASes in a "
+                                 "two-level call")
+            if capped:
+                _check_thread_tables(s, s.device)
+            else:
+                _check_wide_tables(s, s.device)
+            b = index[key] = len(index)
+            tables.nodes[b], tables.tri_vec[b] = key[0], key[1]
+            tables.leaf_bits[b] = s.bvh4_leaf_bits
+            scenes.append(s)
+        blas_of.append(index[key])
+    for k, b in enumerate(blas_of[1:]):
+        tables.blas_of[k] = b
+    entries = 0 if capped else max(wide_stack_entries(s) for s in scenes)
+    return tables, len(scenes), entries
+
+
+def _two_level_launch(any_hit: bool, static_scene: SceneArrays, inst_scenes, inst_inv,
+                      inst_boxes, slot_off, o, d, t_max, max_steps):
+    """Validate a two-level call's rays and tables on the card (its
+    instances checked by _check_instances) and launch its kernel. Returns
+    the outputs: (Hit, inst_id), or the occlusion."""
+    dev = o.device
+    t_max = _check_rays(o, d, t_max)
+    tables, n_blas, entries = _two_level_tables(static_scene, inst_scenes,
+                                                max_steps is not None)
+    r, n = o.shape[0], len(inst_scenes)
+    cap = -1 if max_steps is None else int(max_steps)
+    if any_hit:
+        out = torch.empty(r, dtype=torch.bool, device=dev)
+    else:
+        t = torch.empty(r, dtype=torch.float32, device=dev)
+        slot = torch.empty(r, dtype=torch.int32, device=dev)
+        u = torch.empty_like(t)
+        v = torch.empty_like(t)
+        inst = torch.empty(r, dtype=torch.int32, device=dev)
+        out = (Hit(t=t, slot=slot, u=u, v=v), inst)
+    if r:
+        next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        lib = _load()
+        if any_hit:
+            err = lib.idk_trace_any_two_level(
+                _ptr(o), _ptr(d), _ptr(t_max), _ptr(out), _ptr(next_ray), r, entries, cap,
+                _ptr(inst_inv), n, n_blas, ctypes.byref(tables), stream)
+        else:
+            err = lib.idk_trace_closest_two_level(
+                _ptr(o), _ptr(d), _ptr(t_max), _ptr(t), _ptr(slot), _ptr(u), _ptr(v),
+                _ptr(inst), _ptr(next_ray), r, entries, cap, _ptr(inst_inv), _ptr(inst_boxes),
+                None if slot_off is None else _ptr(slot_off), n, n_blas, ctypes.byref(tables),
+                stream)
+        _raise_on(err, "two-level trace")
+    return out
 
 
 def trace_closest_two_level(static_scene: SceneArrays, inst_scenes, inst_inv, inst_boxes,
                             o, d, t_max, slot_off=None, max_steps: int | None = None,
                             tag: str = ""):
-    """Two-level closest hit (ops/trace.py:two_level_closest) through
-    trace_closest: the trace kernel, or the capped kernel with max_steps,
-    once for the static scene and once an instance, each launch tagged
-    `tag`. Returns (Hit, inst_id). Its count is the kernel launches made
-    inside it."""
-    before = _trace_launches()
-    out = _plain.two_level_closest(partial(trace_closest, tag=tag), static_scene, inst_scenes,
-                                   inst_inv, inst_boxes, o, d, t_max, slot_off, max_steps)
-    trace_closest_two_level.launches += _trace_launches() - before
-    return out
+    """Two-level closest hit (ops/trace.py:trace_closest_two_level): the
+    static scene, then each instance (inst_scenes one SceneArrays an
+    instance, inst_inv (I,3,4) world->local, inst_boxes (I,2,3) world
+    boxes, slot_off (I,) int32 or None) whose box the ray must enter. On
+    the card one launch of csrc/trace.cu's two-level kernel (capped with
+    max_steps), inside the range profiling.call_site_name(False, tag);
+    bit-equal to the loop ops/trace.py:two_level_closest over
+    trace_closest. Returns (Hit, inst_id), inst_id -1 for a static hit or a
+    miss."""
+    _check_cap(max_steps)
+    with call_site(False, tag):
+        on_cpu = _on_cpu(static_scene, o, d)
+        _check_instances(inst_scenes, inst_inv, inst_boxes, slot_off, o.device)
+        if on_cpu:
+            return _plain.trace_closest_two_level(static_scene, inst_scenes, inst_inv,
+                                                  inst_boxes, o, d, t_max, slot_off, max_steps)
+        out = _two_level_launch(False, static_scene, inst_scenes, inst_inv, inst_boxes,
+                                slot_off, o, d, t_max, max_steps)
+        if o.shape[0]:
+            trace_closest_two_level.launches += 1
+        return out
 
 
 def trace_any_two_level(static_scene: SceneArrays, inst_scenes, inst_inv, inst_boxes, o, d,
                         t_max, max_steps: int | None = None, tag: str = "") -> torch.Tensor:
-    """Two-level occlusion (ops/trace.py:two_level_any) through trace_any,
-    as trace_closest_two_level; inst_boxes is not used."""
-    del inst_boxes
-    before = _trace_launches()
-    out = _plain.two_level_any(partial(trace_any, tag=tag), static_scene, inst_scenes, inst_inv,
-                               o, d, t_max, max_steps)
-    trace_any_two_level.launches += _trace_launches() - before
-    return out
+    """Two-level occlusion (ops/trace.py:trace_any_two_level), one launch
+    on the card, as trace_closest_two_level; the instances are not pruned
+    by their boxes (the JAX package prunes none here), but inst_boxes is
+    checked all the same."""
+    _check_cap(max_steps)
+    with call_site(True, tag):
+        on_cpu = _on_cpu(static_scene, o, d)
+        _check_instances(inst_scenes, inst_inv, inst_boxes, None, o.device)
+        if on_cpu:
+            return _plain.trace_any_two_level(static_scene, inst_scenes, inst_inv, inst_boxes,
+                                              o, d, t_max, max_steps)
+        out = _two_level_launch(True, static_scene, inst_scenes, inst_inv, inst_boxes, None,
+                                o, d, t_max, max_steps)
+        if o.shape[0]:
+            trace_any_two_level.launches += 1
+        return out
 
 
-# launch counts: each wrapper adds one where it launches its kernel (the
-# two-level functions the launches made inside them)
+# launch counts: each wrapper adds one where it launches its kernel
 WRAPPERS = (trace_closest, trace_any, trace_closest_steps, _closest_capped, _any_capped,
             trace_closest_two_level, trace_any_two_level)
 

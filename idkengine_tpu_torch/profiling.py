@@ -115,7 +115,8 @@ def log_report():
 # the port's hand traversal kernels (csrc/trace.cu, csrc/two_phase.cu): the
 # kernels a call-site range buckets
 HAND_TRACE_KERNELS = ("trace_kernel", "trace_capped_kernel", "trace_steps_kernel",
-                      "phase_a_kernel", "phase_b_kernel")
+                      "two_level_kernel", "two_level_capped_kernel", "phase_a_kernel",
+                      "phase_b_kernel")
 
 
 def call_site_name(any_hit: bool, tag: str = "") -> str:

@@ -1100,7 +1100,7 @@ def _instanced_cam():
 
 @pytest.mark.parametrize("max_steps", [None, 64])
 def test_two_level_on_card_matches_plain(dev, max_steps):
-    """The two-level traces through the kernels (1 + I launches a call)
+    """The two-level traces through the fused kernel (one launch a call)
     against the plain two-level traces on the same card tensors: occlusion
     equal on every ray; closest hits, through the capped kernel (which
     walks the plain order), t, slot, u, v and the instance id equal on
@@ -1120,7 +1120,7 @@ def test_two_level_on_card_matches_plain(dev, max_steps):
     hit, inst = kern.trace_closest_two_level(*args, slot_off=iset.slot_off, max_steps=max_steps)
     occ = kern.trace_any_two_level(*args, max_steps=max_steps)
     torch.cuda.synchronize()
-    assert kern.trace_closest_two_level.launches == kern.trace_any_two_level.launches == 3
+    assert kern.trace_closest_two_level.launches == kern.trace_any_two_level.launches == 1
     want, want_inst = plain.trace_closest_two_level(*args, slot_off=iset.slot_off,
                                                     max_steps=max_steps)
     same = (hit.slot == want.slot) & (inst == want_inst)
@@ -1133,7 +1133,8 @@ def test_two_level_on_card_matches_plain(dev, max_steps):
 
 def test_instanced_pathtracer_on_card_matches_cpu(dev):
     """PathTracer(instances=...) at 48x48 on the card against the CPU
-    (RMSE <= 1e-3); the card's frame launches the two-level traces."""
+    (RMSE <= 1e-3); the card's frame launches the two-level kernel once a
+    trace call (two closest and two any-hit calls a depth-2 frame)."""
     imgs = []
     for device in (dev, "cpu"):
         db = _instanced_db(device)
@@ -1144,10 +1145,135 @@ def test_instanced_pathtracer_on_card_matches_cpu(dev):
         kern.reset_launch_counts()
         imgs.append(pt.render_frame(_instanced_cam()).cpu().numpy())
         if device == dev:
-            assert kern.trace_closest_two_level.launches == 2 * 3
-            assert kern.trace_any_two_level.launches == 2 * 3
+            assert kern.trace_closest_two_level.launches == 2
+            assert kern.trace_any_two_level.launches == 2
     assert np.isfinite(imgs[0]).all() and imgs[0].std() > 0
     assert float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2))) <= 1e-3
+
+
+def _placements(rng, count):
+    """`count` seeded 4x4 transforms inside the atrium: a random turn,
+    scales 1-3, places within its box."""
+    mats = np.tile(np.eye(4, dtype=np.float32), (count, 1, 1))
+    for m in mats:
+        q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+        m[:3, :3] = q * rng.uniform(1.0, 3.0)
+        m[:3, 3] = rng.uniform([-10.0, 1.0, -25.0], [10.0, 11.0, 25.0])
+    return mats
+
+
+def _mesh(pos, idx):
+    from idkengine_tpu_torch.scene.model import Material, MeshPrimitive, Model, Node
+
+    prim = MeshPrimitive(positions=pos.astype(np.float32), indices=idx.astype(np.uint32))
+    prim.ensure_normals()
+    return Model(primitives=[prim], nodes=[Node(mesh_primitives=[0])], root_nodes=[0],
+                 materials=[Material(name="inst")])
+
+
+def _two_level_db(blas):
+    """The atrium with 16 instances at seeded places: "shared", one 12x16
+    sphere (one BLAS); "distinct", built with leaves above 32 triangles, 5
+    quads (5 count bits), 6 spheres of 6x8 and 5 of 12x16 (6 count bits)."""
+    from idkengine_tpu_torch.scene.procedural import make_uv_sphere
+
+    rng = np.random.default_rng(17)
+    sphere = _mesh(*make_uv_sphere([0.0, 0.0, 0.0], 1.0, n_lat=12, n_lon=16))
+    if blas == "shared":
+        db = SceneDatabase(BuildSettings(**BUILD))
+        db.add_model(atrium(20_000))
+        db.add_instanced_model(sphere, _placements(rng, 16))
+    else:
+        db = SceneDatabase(BuildSettings(max_leaf_triangle_count=40, traversal_cost=40.0,
+                                         presplit_factor=0.0))
+        db.add_model(atrium(20_000))
+        quad = _mesh(np.float32([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]]),
+                     np.uint32([[0, 1, 2], [0, 2, 3]]))
+        db.add_instanced_model(quad, _placements(rng, 5))
+        db.add_instanced_model(_mesh(*make_uv_sphere([0.0, 0.0, 0.0], 1.0, n_lat=6, n_lon=8)),
+                               _placements(rng, 6))
+        db.add_instanced_model(sphere, _placements(rng, 5))
+    db.build("cuda")
+    return db
+
+
+def _two_level_rays(sc, n, seed):
+    """_rays_of's dead_and_zero rays with every fourth from 1e8 units away."""
+    o, d, t_max = _rays_of("dead_and_zero", sc, n, seed, "cuda")
+    far = torch.arange(n, device="cuda") % 4 == 3
+    return (torch.where(far[:, None], o - d * 1e8, o).contiguous(), d,
+            torch.where(far, 2e8, t_max).contiguous())
+
+
+def _fused_equal(static, parts, o, d, t_max, cap) -> int:
+    """The fused two-level kernel (one launch a call) against the launch
+    loop (ops/trace.py:two_level_closest / two_level_any over the one-level
+    kernels, the same walks one BLAS a launch): t, slot, u, v and the
+    instance id equal on every ray, occlusion too. Returns the rays on an
+    instance."""
+    scenes, inv, boxes, slot_off = parts
+    kern.reset_launch_counts()
+    hit, inst = kern.trace_closest_two_level(static, scenes, inv, boxes, o, d, t_max,
+                                             slot_off=slot_off, max_steps=cap)
+    occ = kern.trace_any_two_level(static, scenes, inv, boxes, o, d, t_max, max_steps=cap)
+    torch.cuda.synchronize()
+    assert kern.trace_closest_two_level.launches == kern.trace_any_two_level.launches == 1
+    assert kern._trace_launches() == 0
+    want, want_inst = plain.two_level_closest(kern.trace_closest, static, scenes, inv, boxes,
+                                              o, d, t_max, slot_off, cap)
+    for k in ("t", "slot", "u", "v"):
+        assert torch.equal(getattr(hit, k), getattr(want, k)), (k, cap, o.shape[0])
+    assert torch.equal(inst, want_inst), (cap, o.shape[0])
+    assert torch.equal(occ, plain.two_level_any(kern.trace_any, static, scenes, inv, o, d,
+                                                t_max, cap)), (cap, o.shape[0])
+    return int((inst >= 0).sum().item())
+
+
+def _two_level_cases(blas, n_inst):
+    """_fused_equal on the first n_inst instances of _two_level_db(blas),
+    at caps None, 0, 1 and 64 and batches of 1, 5, 33 and 2^20 rays."""
+    db = _two_level_db(blas)
+    static, iset = db.device_scene, db.instance_set()
+    parts = (iset.scenes[:n_inst], iset.inv[:n_inst], iset.boxes[:n_inst],
+             iset.slot_off[:n_inst])
+    if blas == "distinct":
+        assert {s.bvh4_leaf_bits for s in parts[0]} == {5, 6}
+    on_instance = 0
+    for n in (1, 5, 33, 1 << 20):
+        o, d, t_max = _two_level_rays(static, n, n)
+        for cap in (None, 0, 1, 64):
+            on_instance += _fused_equal(static, parts, o, d, t_max, cap)
+    assert (on_instance > 0) == (n_inst > 0)
+
+
+@pytest.mark.parametrize("blas,n_inst", [("shared", 0), ("shared", 1), ("shared", 16),
+                                         ("distinct", 16)])
+def test_two_level_kernel_matches_launch_loop(dev, blas, n_inst):
+    """The fused kernel bit-equal to the per-instance launch loop on every
+    ray (_two_level_cases), its first launches in a process of its own."""
+    _on_card_alone(f"t._two_level_cases({blas!r}, {n_inst})")
+
+
+def test_two_level_kernel_refuses_bad_inputs(dev):
+    """Mismatched instance tensors, a scene off the card, more instances
+    than the kernel's parameter block holds: each raises before a launch."""
+    db = _two_level_db("shared")
+    static, iset = db.device_scene, db.instance_set()
+    o, d, t_max = _two_level_rays(static, 64, 3)
+    kern.reset_launch_counts()
+    for kw in (dict(inst_inv=iset.inv[:3]), dict(inst_boxes=iset.boxes.cpu()),
+               dict(inst_scenes=iset.scenes[:15]), dict(slot_off=iset.slot_off[:2])):
+        args = dict(inst_scenes=iset.scenes, inst_inv=iset.inv, inst_boxes=iset.boxes,
+                    slot_off=iset.slot_off)
+        args.update(kw)
+        with pytest.raises((ValueError, TypeError)):
+            kern.trace_closest_two_level(static, o=o, d=d, t_max=t_max, **args)
+    many = kern.TWO_LEVEL_MAX_INSTANCES + 1
+    with pytest.raises(ValueError):
+        kern.trace_any_two_level(static, [iset.scenes[0]] * many, iset.inv[:1].expand(many, 3, 4)
+                                 .contiguous(), iset.boxes[:1].expand(many, 2, 3).contiguous(),
+                                 o, d, t_max)
+    assert kern.trace_closest_two_level.launches == kern.trace_any_two_level.launches == 0
 
 
 def _app_engine(device, mode, path, shading):

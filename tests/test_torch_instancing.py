@@ -322,3 +322,193 @@ def test_runtime_model_add_incremental():
                     PathTracerSettings(**SETTINGS), instances=iset2,
                     inst_attr_srcs=db._inst_attr_srcs, device="cpu")
     assert pt.attr_table().shape[0] == int(iset2.slot_off[1]) + iset2.scenes[1].tri_p0.shape[0]
+
+
+# The cases the card's two-level kernel must reproduce (its oracle is the
+# plain loop, held here to the JAX package): a static quad with the same
+# quad as instance 0 (a static hit at the instance's t) and two coincident
+# sphere instances (1 and 2: equal t, the earlier wins); and, built with
+# leaves above 32 triangles, a sphere instance whose BLAS has 6 count bits
+# beside the static quad's 5.
+EDGE_QUAD = (np.float32([[-3, -1, 0], [-1, -1, 0], [-1, 1, 0], [-3, 1, 0]]),
+             np.uint32([[0, 1, 2], [0, 2, 3]]))
+EDGE_SPHERE = [0.0, 0.0, 2.0]
+EDGE_T_MAX = np.float32([3.4e38, 30.0, 2.5, -1.0, 0.0, -0.0])
+LEAF40 = dict(max_leaf_triangle_count=40, traversal_cost=40.0, presplit_factor=0.0)
+
+
+def _mesh_model(jax_side: bool, pos, idx):
+    prim_t, model_t, node_t, mat_t = ((JMeshPrimitive, JModel, JNode, JMaterial) if jax_side
+                                      else (MeshPrimitive, Model, Node, Material))
+    prim = prim_t(positions=pos.astype(np.float32), indices=idx.astype(np.uint32), material=0)
+    prim.ensure_normals()
+    m = model_t(primitives=[prim], nodes=[node_t(mesh_primitives=[0])],
+                materials=[mat_t(name="m", base_color=np.array([0.8, 0.8, 0.8, 1], np.float32))])
+    m.root_nodes.append(0)
+    return m
+
+
+def _carry(db):
+    """A JAX database's static scene and InstanceSet in the port (CPU)."""
+    jiset = db.instance_set()
+    made = {}
+    scenes = [made.setdefault(id(s), _arrays(s)) for s in jiset.scenes]
+    static = from_jax_scene_arrays(_arrays(db.device_scene), db.device_scene.max_leaf, "cpu")
+    iset = instance_set_from_jax(scenes, jiset.scenes[0].max_leaf, np.asarray(jiset.inv),
+                                 np.asarray(jiset.boxes), np.asarray(jiset.slot_off),
+                                 np.asarray(jiset.normal_mat), "cpu")
+    return db, static, iset
+
+
+def _edge_db(build, sphere_res, sphere_count, quad_instance):
+    db = JSceneDatabase(JBuildSettings(**build))
+    db.add_model(_mesh_model(True, *EDGE_QUAD))
+    if quad_instance:
+        db.add_instanced_model(_mesh_model(True, *EDGE_QUAD), np.eye(4, dtype=np.float32)[None])
+    pos, idx = j_sphere([0.0, 0.0, 0.0], 0.5, n_lat=sphere_res[0], n_lon=sphere_res[1])
+    db.add_instanced_model(_mesh_model(True, pos, idx),
+                           np.stack([_mat(EDGE_SPHERE)] * sphere_count))
+    db.build()
+    return _carry(db)
+
+
+@pytest.fixture(scope="module")
+def edge():
+    """The tie scene: the quad, the quad as instance 0, two coincident
+    spheres."""
+    return _edge_db(BUILD, (12, 16), 2, True)
+
+
+@pytest.fixture(scope="module")
+def leafy():
+    """The quad and one sphere instance with leaves above 32 triangles."""
+    return _edge_db(LEAF40, (6, 8), 1, False)
+
+
+def _edge_rays(n, seed):
+    """Rays onto the quad, onto the spheres, from inside their box and
+    anywhere, each t_max of EDGE_T_MAX (the first half live)."""
+    rng = np.random.default_rng(seed)
+    k = n // 4
+    quad = np.stack([rng.uniform(-2.9, -1.1, k), rng.uniform(-0.9, 0.9, k),
+                     np.full(k, -3.0)], 1)
+    quad_d = np.tile([0.0, 0.0, 1.0], (k, 1)) + rng.normal(0, 0.01, (k, 3))
+    pair = np.float32([0.0, 0.0, -3.0]) + rng.normal(0, 0.1, (k, 3))
+    pair_d = np.float32(EDGE_SPHERE) + rng.normal(0, 0.2, (k, 3)) - pair
+    inside = np.float32(EDGE_SPHERE) + rng.uniform(-0.49, 0.49, (k, 3))
+    anywhere = rng.uniform([-4, -2, -4], [3, 2, 4], (n - 3 * k, 3))
+    o = np.concatenate([quad, pair, inside, anywhere]).astype(np.float32)
+    d = np.concatenate([quad_d, pair_d, rng.standard_normal((n - 2 * k, 3))])
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    t_max = EDGE_T_MAX[rng.integers(0, len(EDGE_T_MAX), n)]
+    t_max[:n // 2] = 3.4e38  # most rays live, to meet the ties
+    return o, d, t_max
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def _hold_to_jax(carried, o, d, t_max, max_steps):
+    """The plain loop and the port's entry points bit-equal to the JAX
+    package's two-level traces (t by its bits, so -0 stays -0). Returns
+    JAX's (Hit, inst_id, occlusion) as numpy arrays."""
+    jdb, static, iset = carried
+    jiset = jdb.instance_set()
+    cap = {} if max_steps is None else {"max_steps": max_steps}
+    jo, jd, jt = jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max)
+    jhit, jinst = j_trace.trace_closest_two_level(jdb.device_scene, jiset.scenes, jiset.inv,
+                                                  jiset.boxes, jo, jd, jt,
+                                                  slot_off=jiset.slot_off, **cap)
+    jocc = np.asarray(j_trace.trace_any_two_level(jdb.device_scene, jiset.scenes, jiset.inv,
+                                                  jiset.boxes, jo, jd, jt, **cap))
+    args = (static, iset.scenes, iset.inv, iset.boxes, torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(t_max))
+    for fn in (plain.trace_closest_two_level, packet_trace.trace_closest_two_level):
+        hit, inst = fn(*args, slot_off=iset.slot_off, max_steps=max_steps)
+        np.testing.assert_array_equal(_bits(hit.t.numpy()), _bits(jhit.t))
+        for k in ("slot", "u", "v"):
+            np.testing.assert_array_equal(getattr(hit, k).numpy(), np.asarray(getattr(jhit, k)),
+                                          err_msg=k)
+        np.testing.assert_array_equal(inst.numpy(), np.asarray(jinst))
+    for fn in (plain.trace_any_two_level, packet_trace.trace_any_two_level):
+        np.testing.assert_array_equal(fn(*args, max_steps=max_steps).numpy(), jocc)
+    return {k: np.asarray(getattr(jhit, k)) for k in ("t", "slot")}, np.asarray(jinst), jocc
+
+
+@pytest.mark.parametrize("max_steps", [None, 64])
+def test_two_level_edge_cases_match_jax(edge, max_steps):
+    """_hold_to_jax on the tie scene, whose rays meet each case: a static
+    hit at the same t as instance 0's keeps the static hit, the coincident
+    instance 1 wins over 2, rays from inside the spheres' box hit them,
+    dead rays and t_max 0 and -0 hit nothing and keep their t_max."""
+    _, _, iset = edge
+    o, d, t_max = _edge_rays(2048, 11)
+    hit, inst, occ = _hold_to_jax(edge, o, d, t_max, max_steps)
+    to, td = torch.from_numpy(o), torch.from_numpy(d)
+    alone = []  # instances 0 and 2 traced alone: each finds the winner's t
+    for i in (0, 2):
+        lo, ld = plain.to_instance(iset.inv[i], to, td)
+        alone.append(plain.trace_closest(iset.scenes[i], lo, ld, torch.from_numpy(t_max),
+                                         max_steps=max_steps).t.numpy())
+    quad_tie = (inst == -1) & (hit["slot"] >= 0) & (alone[0] == hit["t"])
+    pair_tie = (inst == 1) & (alone[1] == hit["t"])
+    assert quad_tie[:512].sum() > 100 and pair_tie[512:1024].sum() > 100
+    assert not (inst == 2).any()
+    assert (inst[1024:1536] >= 1).sum() > 100  # from inside the spheres' box
+    dead = ~(t_max > 0)
+    assert dead.sum() > 50 and (hit["slot"][dead] == -1).all() and not occ[dead].any()
+    np.testing.assert_array_equal(_bits(hit["t"][dead]), _bits(t_max[dead]))
+
+
+def test_two_level_leaf_bits_differ_match_jax(leafy):
+    """_hold_to_jax where the static scene's leaves take 5 count bits and
+    the instance's 6 (a leaf of more than 32 triangles)."""
+    _, static, iset = leafy
+    assert static.bvh4_leaf_bits == 5 and iset.scenes[0].bvh4_leaf_bits == 6
+    _, inst, _ = _hold_to_jax(leafy, *_edge_rays(1024, 13), None)
+    assert (inst == 0).sum() > 100
+
+
+def test_two_level_without_instances_matches_jax(edge):
+    """I = 0: the two-level traces are the static scene's traces."""
+    jdb, static, _ = edge
+    o, d, t_max = _edge_rays(512, 12)
+    jo, jd, jt = jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max)
+    jinv, jboxes = jnp.zeros((0, 3, 4)), jnp.zeros((0, 2, 3))
+    jhit, jinst = j_trace.trace_closest_two_level(jdb.device_scene, (), jinv, jboxes, jo, jd, jt,
+                                                  slot_off=jnp.zeros((0,), jnp.int32))
+    jocc = np.asarray(j_trace.trace_any_two_level(jdb.device_scene, (), jinv, jboxes, jo, jd,
+                                                  jt))
+    args = (static, [], torch.zeros((0, 3, 4)), torch.zeros((0, 2, 3)), torch.from_numpy(o),
+            torch.from_numpy(d), torch.from_numpy(t_max))
+    hit, inst = packet_trace.trace_closest_two_level(
+        *args, slot_off=torch.zeros(0, dtype=torch.int32))
+    np.testing.assert_array_equal(_bits(hit.t.numpy()), _bits(jhit.t))
+    np.testing.assert_array_equal(hit.slot.numpy(), np.asarray(jhit.slot))
+    assert (inst.numpy() == -1).all() and (np.asarray(jinst) == -1).all()
+    assert (hit.slot.numpy() >= 0).any()
+    np.testing.assert_array_equal(packet_trace.trace_any_two_level(*args).numpy(), jocc)
+
+
+def test_two_level_wrappers_refuse_mismatched_instances(carried):
+    """inv, boxes and slot_off of another instance count, or of the wrong
+    type, and a scene list of another length raise before any trace."""
+    static, iset = carried
+    o, d = torch.zeros((4, 3)), torch.tensor([[0.0, 0.0, 1.0]] * 4)
+    good = dict(inst_scenes=iset.scenes, inst_inv=iset.inv, inst_boxes=iset.boxes)
+    bad = [dict(good, inst_inv=iset.inv[:1]), dict(good, inst_boxes=iset.boxes[:1]),
+           dict(good, inst_scenes=iset.scenes[:1]), dict(good, inst_inv=iset.inv.double()),
+           dict(good, inst_boxes=iset.boxes.reshape(2, 3, 2)),
+           dict(good, inst_inv=iset.inv.transpose(1, 2).contiguous().transpose(1, 2))]
+    for kw in bad:
+        for fn in (packet_trace.trace_closest_two_level, packet_trace.trace_any_two_level):
+            with pytest.raises((ValueError, TypeError)):
+                fn(static, o=o, d=d, t_max=3.4e38, **kw)
+    for slot_off in (iset.slot_off[:1], iset.slot_off.long(), iset.slot_off.float()):
+        with pytest.raises((ValueError, TypeError)):
+            packet_trace.trace_closest_two_level(static, o=o, d=d, t_max=3.4e38,
+                                                 slot_off=slot_off, **good)
+    hit, inst = packet_trace.trace_closest_two_level(static, o=o, d=d, t_max=3.4e38,
+                                                     slot_off=iset.slot_off, **good)
+    assert hit.t.shape == inst.shape == (4,)

@@ -109,6 +109,67 @@ def test_attribute_takes_the_innermost_call_site():
     assert profiling.bucket_times([]) == {}
 
 
+def test_two_level_kernels_take_their_call_sites():
+    """The fused two-level kernels, closest and any-hit, capped or not, are
+    hand trace kernels: each takes the call-site range it was launched in
+    and that range's bucket; outside any range, trace_other."""
+    events = [
+        _event("pt_closest_pri", CPU, 0, 50),
+        _event("cudaLaunchKernel", CPU, 10, 11, id_=3),
+        _event("void (anonymous namespace)::two_level_kernel<false>(float const*)", CUDA,
+               100, 140, id_=3),
+        _event("pt_any_nee", CPU, 200, 250),
+        _event("cudaLaunchKernel", CPU, 210, 211, id_=4),
+        _event("void (anonymous namespace)::two_level_capped_kernel<true>(float const*)", CUDA,
+               300, 320, id_=4),
+        _event("pt_closest_bnca", CPU, 400, 450),
+        _event("cudaLaunchKernel", CPU, 410, 411, id_=5),
+        _event("void (anonymous namespace)::two_level_kernel<false>(float const*)", CUDA,
+               500, 510, id_=5),
+        _event("void (anonymous namespace)::two_level_kernel<true>(float const*)", CUDA,
+               600, 605, id_=6),
+    ]
+    got = profiling.attribute(events)
+    assert [site for _, site, _ in got] == ["pt_closest_pri", "pt_any_nee", "pt_closest_bnca",
+                                           None]
+    by = profiling.bucket_times(got, ndigits=3)
+    assert by == {"total_device": 0.075, "primary": 0.04, "nee": 0.02,
+                  "bounce_closest": 0.01, "trace_other": 0.005}
+    for name, _, _ in got:
+        assert profiling.bucket(name) == "trace_other"
+
+
+def test_two_level_traces_open_one_call_site(carried_instances):
+    """A two-level call opens its call site's range once (the fused
+    kernel's launch, on the CPU the plain loop), for closest and any hits."""
+    static, iset, o, d = carried_instances
+    names = _ranges(lambda: packet_trace.trace_closest_two_level(
+        static, iset.scenes, iset.inv, iset.boxes, o, d, 3.4e38, slot_off=iset.slot_off,
+        tag="pri"))
+    assert names == ["pt_closest_pri"]
+    names = _ranges(lambda: packet_trace.trace_any_two_level(
+        static, iset.scenes, iset.inv, iset.boxes, o, d, 3.4e38, max_steps=64, tag="nee"))
+    assert names == ["pt_any_nee"]
+
+
+@pytest.fixture(scope="module")
+def carried_instances():
+    """The Cornell box with two instances of itself at a tenth of its size,
+    on the CPU, and rays towards them."""
+    mats = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    mats[:, :3, :3] *= 0.1
+    mats[:, :3, 3] = [[150, 380, 250], [400, 380, 250]]
+    db = SceneDatabase(BuildSettings(max_leaf_triangle_count=12, traversal_cost=4.0))
+    db.add_model(cornell_box(emissive_quad=False))
+    db.add_instanced_model(cornell_box(emissive_quad=False), mats)
+    db.build("cpu")
+    rs = np.random.default_rng(6)
+    o = torch.from_numpy(rs.uniform([0, 0, -300], [556, 548, 0], (64, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.from_numpy(
+        (np.float32([278, 380, 250]) - o.numpy()).astype(np.float32)), dim=-1)
+    return db.device_scene, db.instance_set(), o, d
+
+
 def _ranges(fn):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         fn()

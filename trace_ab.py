@@ -428,7 +428,7 @@ def main(argv=None):
         pipe = DeferredPipeline(db, cs.WIDTH, cs.HEIGHT, cs._deferred_settings(cs.VXGI_RES),
                                 device=dev)
         pipe.render_frame(cam)
-        calls = {f"deferred {n}": call for n, call in
+        calls = {f"deferred {n} ({pass_})": call for n, (pass_, *call) in
                  enumerate(cs.record_deferred_traces(pipe, cam))}
         del pipe
         for name, (kind, *rest) in {**batches, **calls}.items():
