@@ -47,6 +47,13 @@
 // its children); the wrapper refuses a tree deeper than
 // (TRACE_RING + TRACE_SPILL) / 3 records.
 //
+// Counting (trace_kernel<ANY_HIT, true>, launched where the caller passes a
+// counter row): each thread adds, in registers, its live rays, the 4-wide
+// records they fetched and the triangles they tested; once its warp has no
+// rays left, the warp sums them with shuffles and one lane adds the sums
+// to the row (three 64-bit atomics a warp and launch). A null row launches
+// trace_kernel<ANY_HIT, false>, whose code holds none of this.
+//
 // Layout and arithmetic: trace_math.cuh. The slab test is slab_box and the
 // Möller–Trumbore test triangle_values, the plain version's form (XLA:CPU's
 // fused multiply-adds through __fmaf_rn, nothing else contracted), so that
@@ -144,6 +151,11 @@
 
 namespace {
 
+// A thread's counts of the work of its rays (trace_kernel<ANY_HIT, true>).
+struct WalkCounts {
+  unsigned rays, nodes, tris;
+};
+
 constexpr int kMissKey = 0x7fffffff;  // above the bits of any entry distance (>= 0)
 
 // Entry distance of a child as a sort key: its f32 bits (ordered as the
@@ -187,17 +199,19 @@ __device__ __forceinline__ int2 pop(int2* ring, int2 (&spill)[TRACE_SPILL], int&
 // The 4-wide walk of one live ray from the root record, with a fresh stack:
 // a hit closer than t_best replaces (t_best, best_slot, best_u, best_v);
 // the any-hit walk stops at its first. `ring` is this thread's column of
-// the block's shared ring, `spill` the stack's older entries.
-template <bool ANY_HIT>
+// the block's shared ring, `spill` the stack's older entries. COUNT adds
+// each record fetched and each triangle tested to `counts`.
+template <bool ANY_HIT, bool COUNT = false>
 __device__ __forceinline__ void walk_wide(const float4* __restrict__ wide,
                                           const float4* __restrict__ tri_vec, const Ray& r,
                                           float& t_best, int& best_slot, float& best_u,
                                           float& best_v, int leaf_bits, int2* ring,
-                                          int2 (&spill)[TRACE_SPILL]) {
+                                          int2 (&spill)[TRACE_SPILL], WalkCounts& counts) {
   int sp = 0;
   int code = 0;  // the root record
   for (;;) {
     if (code >= 0) {
+      if constexpr (COUNT) ++counts.nodes;
       const float4* rec = wide + 8 * code;
       const float4 lx = __ldg(rec), hx = __ldg(rec + 1), ly = __ldg(rec + 2);
       const float4 hy = __ldg(rec + 3), lz = __ldg(rec + 4), hz = __ldg(rec + 5);
@@ -226,6 +240,7 @@ __device__ __forceinline__ void walk_wide(const float4* __restrict__ wide,
       const int count = (leaf & ((1 << leaf_bits) - 1)) + 1;
       for (int k = 0; k < count; ++k) {
         float t, u, v;
+        if constexpr (COUNT) ++counts.tris;
         if (triangle_vec(tri_vec, first + k, r, t, u, v) && t < t_best) {
           t_best = t;
           best_slot = first + k;
@@ -251,23 +266,25 @@ __device__ __forceinline__ void walk_wide(const float4* __restrict__ wide,
 }
 
 // One ray; `ring` is this thread's column of the block's shared ring.
-template <bool ANY_HIT>
+// COUNT adds a live ray and its walk's work to `counts`.
+template <bool ANY_HIT, bool COUNT>
 __device__ __forceinline__ void trace_ray(
     const float4* __restrict__ wide, const float4* __restrict__ tri_vec,
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ t_max, float* __restrict__ t_out, int* __restrict__ slot_out,
     float* __restrict__ u_out, float* __restrict__ v_out, bool* __restrict__ occ_out, int i,
-    int leaf_bits, int2* ring) {
+    int leaf_bits, int2* ring, WalkCounts& counts) {
   const float tmax = t_max[i];
   float t_best = tmax;
   int best_slot = -1;
   float best_u = 0.0f, best_v = 0.0f;
 
   if (!(tmax < 0.0f)) {  // t_max < 0 marks a dead ray
+    if constexpr (COUNT) ++counts.rays;
     const Ray r = load_ray(o, d, i);
     int2 spill[TRACE_SPILL];
-    walk_wide<ANY_HIT>(wide, tri_vec, r, t_best, best_slot, best_u, best_v, leaf_bits, ring,
-                       spill);
+    walk_wide<ANY_HIT, COUNT>(wide, tri_vec, r, t_best, best_slot, best_u, best_v, leaf_bits,
+                              ring, spill, counts);
   }
   if (ANY_HIT) {
     occ_out[i] = best_slot >= 0;
@@ -286,17 +303,20 @@ __device__ __forceinline__ void trace_ray(
 // 62 (closest) registers, where without it it holds to 48 (10 resident
 // blocks an SM, not 8); the wider form measured 5-10% faster on the
 // primaries, the shadow rays and the deferred frame's longest launch.
-template <bool ANY_HIT>
+// COUNT adds the warp's WalkCounts to counts[0..2] (rays, nodes, tris) as
+// the warp leaves.
+template <bool ANY_HIT, bool COUNT>
 __global__ void __launch_bounds__(TRACE_BLOCK, 1)
 trace_kernel(const float4* __restrict__ wide, const float4* __restrict__ tri_vec,
              const float* __restrict__ o, const float* __restrict__ d,
              const float* __restrict__ t_max, float* __restrict__ t_out,
              int* __restrict__ slot_out, float* __restrict__ u_out, float* __restrict__ v_out,
              bool* __restrict__ occ_out, int* __restrict__ next_ray, int n_rays,
-             int leaf_bits) {
+             int leaf_bits, unsigned long long* __restrict__ counts) {
   extern __shared__ int2 ring_smem[];
   int2* ring = ring_smem + threadIdx.x;
   const int lane = threadIdx.x & 31;
+  WalkCounts c = {0u, 0u, 0u};
   for (;;) {
     int base = 0;
     if (lane == 0) base = atomicAdd(next_ray, 32);
@@ -304,9 +324,22 @@ trace_kernel(const float4* __restrict__ wide, const float4* __restrict__ tri_vec
     if (base >= n_rays) break;
     const int i = base + lane;
     if (i < n_rays)
-      trace_ray<ANY_HIT>(wide, tri_vec, o, d, t_max, t_out, slot_out, u_out, v_out, occ_out, i,
-                         leaf_bits, ring);
+      trace_ray<ANY_HIT, COUNT>(wide, tri_vec, o, d, t_max, t_out, slot_out, u_out, v_out,
+                                occ_out, i, leaf_bits, ring, c);
     __syncwarp();
+  }
+  if constexpr (COUNT) {
+    unsigned long long rays = c.rays, nodes = c.nodes, tris = c.tris;
+    for (int off = 16; off > 0; off >>= 1) {
+      rays += __shfl_down_sync(0xffffffffu, rays, off);
+      nodes += __shfl_down_sync(0xffffffffu, nodes, off);
+      tris += __shfl_down_sync(0xffffffffu, tris, off);
+    }
+    if (lane == 0) {
+      atomicAdd(counts, rays);
+      atomicAdd(counts + 1, nodes);
+      atomicAdd(counts + 2, tris);
+    }
   }
 }
 
@@ -325,23 +358,38 @@ cudaError_t persistent_grid(Kernel kernel, int n_rays, size_t smem, dim3& grid) 
   return err;
 }
 
+template <bool ANY_HIT, bool COUNT>
+int launch_trace_kernel(const void* wide, const void* tri_vec, const void* o, const void* d,
+                        const void* t_max, void* t_out, void* slot_out, void* u_out,
+                        void* v_out, void* occ_out, void* next_ray, int n_rays, int leaf_bits,
+                        void* stream, void* counts) {
+  const size_t smem = (size_t)TRACE_RING * TRACE_BLOCK * sizeof(int2);
+  dim3 grid;
+  const cudaError_t err = persistent_grid(trace_kernel<ANY_HIT, COUNT>, n_rays, smem, grid);
+  if (err != cudaSuccess) return (int)err;
+  trace_kernel<ANY_HIT, COUNT><<<grid, TRACE_BLOCK, smem, (cudaStream_t)stream>>>(
+      (const float4*)wide, (const float4*)tri_vec, (const float*)o, (const float*)d,
+      (const float*)t_max, (float*)t_out, (int*)slot_out, (float*)u_out, (float*)v_out,
+      (bool*)occ_out, (int*)next_ray, n_rays, leaf_bits, (unsigned long long*)counts);
+  return (int)cudaGetLastError();
+}
+
+// `counts` null: the plain kernel; else the counting one, into counts[0..2].
 template <bool ANY_HIT>
 int launch_trace(const void* wide, const void* tri_vec, const void* o, const void* d,
                  const void* t_max, void* t_out, void* slot_out, void* u_out, void* v_out,
                  void* occ_out, void* next_ray, int n_rays, int stack_entries, int leaf_bits,
-                 void* stream) {
+                 void* stream, void* counts) {
   if (stack_entries < 1 || stack_entries > TRACE_RING + TRACE_SPILL || leaf_bits < 5 ||
       leaf_bits > 30)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)TRACE_RING * TRACE_BLOCK * sizeof(int2);
-  dim3 grid;
-  const cudaError_t err = persistent_grid(trace_kernel<ANY_HIT>, n_rays, smem, grid);
-  if (err != cudaSuccess) return (int)err;
-  trace_kernel<ANY_HIT><<<grid, TRACE_BLOCK, smem, (cudaStream_t)stream>>>(
-      (const float4*)wide, (const float4*)tri_vec, (const float*)o, (const float*)d,
-      (const float*)t_max, (float*)t_out, (int*)slot_out, (float*)u_out, (float*)v_out,
-      (bool*)occ_out, (int*)next_ray, n_rays, leaf_bits);
-  return (int)cudaGetLastError();
+  if (counts == nullptr)
+    return launch_trace_kernel<ANY_HIT, false>(wide, tri_vec, o, d, t_max, t_out, slot_out,
+                                               u_out, v_out, occ_out, next_ray, n_rays,
+                                               leaf_bits, stream, nullptr);
+  return launch_trace_kernel<ANY_HIT, true>(wide, tri_vec, o, d, t_max, t_out, slot_out, u_out,
+                                            v_out, occ_out, next_ray, n_rays, leaf_bits,
+                                            stream, counts);
 }
 
 // Triangles a leaf test of the steps kernel loads at once (72 registers, 7
@@ -652,11 +700,12 @@ two_level_kernel(const float* __restrict__ o, const float* __restrict__ d,
       if (!(tmax < 0.0f)) {
         const Ray r = load_ray(o, d, i);
         int2 spill[TRACE_SPILL];
+        WalkCounts uncounted;
         two_level_walks<ANY_HIT>(
             r, t_best, best_slot, best_u, best_v, inst, inv, boxes, slot_off, n_inst, tables,
             [&](int b, const Ray& ray, float& tb, int& s, float& u, float& v) {
               walk_wide<ANY_HIT>(tables.nodes[b], tables.tri_vec[b], ray, tb, s, u, v,
-                                 tables.leaf_bits[b], ring, spill);
+                                 tables.leaf_bits[b], ring, spill, uncounted);
             });
       }
       store_two_level<ANY_HIT>(i, t_best, best_slot, best_u, best_v, inst, t_out, slot_out,
@@ -741,14 +790,16 @@ int launch_two_level(const void* o, const void* d, const void* t_max, void* t_ou
 extern "C" {
 
 // The interface of this library, for scripts that bind several versions
-// (trace_ab.py): 6 = 5 and the fused two-level traces; 5 = the wide
+// (trace_ab.py): 7 = 6 with a counter row as the last argument of
+// idk_trace_closest and idk_trace_any; 6 = 5 and the fused two-level
+// traces; 5 = the wide
 // tables with a leaf_bits argument, the
 // threaded records of the steps kernel, the capped walks and the capped
 // steps kernel; 4 = the same without the capped steps kernel; 3 = without
 // the capped walks either. Libraries without this function are older:
 // with idk_trace_stack_limit the wide tables with 5 count bits, without it
 // the binary records.
-int idk_trace_interface() { return 6; }
+int idk_trace_interface() { return 7; }
 
 // The most stack entries a ray can hold (3 per record level of the tree).
 int idk_trace_stack_limit() { return TRACE_RING + TRACE_SPILL; }
@@ -760,23 +811,28 @@ int idk_trace_shared_bytes() { return TRACE_RING * TRACE_BLOCK * (int)sizeof(int
 // leaf table tri_vec ((T,12) f32). All pointers are device pointers;
 // outputs are (n_rays,) f32 t, i32 slot, f32 u, f32 v. `next_ray` is one
 // zeroed i32; `stack_entries` the tree's stack depth (3 per record level);
-// `leaf_bits` the count bits of a leaf reference (5-30).
-// Returns cudaGetLastError().
+// `leaf_bits` the count bits of a leaf reference (5-30). `counts`: null,
+// or a device row of three u64 (rays, nodes, tris) to which the launch
+// adds its live rays, the 4-wide records they fetched and the triangles
+// they tested. Returns cudaGetLastError().
 int idk_trace_closest(const void* wide, const void* tri_vec, const void* o, const void* d,
                       const void* t_max, void* t_out, void* slot_out, void* u_out, void* v_out,
                       void* next_ray, int n_rays, int stack_entries, int leaf_bits,
-                      void* stream) {
+                      void* stream, void* counts) {
   return launch_trace<false>(wide, tri_vec, o, d, t_max, t_out, slot_out, u_out, v_out,
-                             nullptr, next_ray, n_rays, stack_entries, leaf_bits, stream);
+                             nullptr, next_ray, n_rays, stack_entries, leaf_bits, stream,
+                             counts);
 }
 
 // Occlusion per ray: occ_out (n_rays,) bool, true where a triangle lies at
-// 0 < t < t_max. Returns cudaGetLastError().
+// 0 < t < t_max; `counts` as idk_trace_closest's. Returns
+// cudaGetLastError().
 int idk_trace_any(const void* wide, const void* tri_vec, const void* o, const void* d,
                   const void* t_max, void* occ_out, void* next_ray, int n_rays,
-                  int stack_entries, int leaf_bits, void* stream) {
+                  int stack_entries, int leaf_bits, void* stream, void* counts) {
   return launch_trace<true>(wide, tri_vec, o, d, t_max, nullptr, nullptr, nullptr, nullptr,
-                            occ_out, next_ray, n_rays, stack_entries, leaf_bits, stream);
+                            occ_out, next_ray, n_rays, stack_entries, leaf_bits, stream,
+                            counts);
 }
 
 // Closest hit and traversal steps per ray over the threaded records

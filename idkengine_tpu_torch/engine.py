@@ -20,13 +20,13 @@ from __future__ import annotations
 
 import enum
 import json
-import time as _time
 from dataclasses import asdict, dataclass, field
 
 import numpy as np
 
 from . import collision as collision_mod
 from .log import get_logger
+from .profiling import pass_scope
 from .recorder import StateRecorder
 from .render.camera import Camera
 from .render.pathtracer import PathTracerSettings
@@ -226,14 +226,17 @@ class Engine:
 
     # ------------------------------------------------------------------
     def run_headless(self, n_frames: int, dt: float = 1.0 / 60.0, on_frame=None):
-        """Offline frame loop (the windowless Run())."""
+        """Offline frame loop (the windowless Run()); each iteration runs in
+        the span engine/frame (args: the iteration), the path-traced mode's
+        pt/frame inside it. Time frames with a profiler (profiling.start_trace)
+        or with a synchronize in on_frame: the launches return before the
+        card is done."""
         for i in range(n_frames):
-            t0 = _time.time()
-            self.update(dt)
-            img = self.render()
-            if on_frame is not None:
-                on_frame(i, img)
-            log.debug("frame %d in %.1f ms", i, (_time.time() - t0) * 1e3)
+            with pass_scope("engine/frame", i):
+                self.update(dt)
+                img = self.render()
+                if on_frame is not None:
+                    on_frame(i, img)
         return self.frame_index
 
 

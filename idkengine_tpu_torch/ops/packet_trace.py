@@ -24,7 +24,12 @@ steps trace takes the JAX package's call-site `tag` (`pri`, `bnc`, `nee`,
 `env`, an `a` after it for the alpha rounds, `spmd`) and launches inside
 the profiler range that its Pallas kernel's name would carry
 (profiling.call_site), which profiling.capture_device_profile buckets as
-the JAX package buckets that kernel. `trace_closest_steps` takes the JAX
+the JAX package buckets that kernel. While a profiler traces
+(profiling.tracing), trace_closest and trace_any without `max_steps`
+launch the trace kernel's counting form, which adds the call's live rays,
+the 4-wide records they visited and the triangles they tested to the call
+site's counters (profiling.report); the capped, steps and two-level
+kernels count nothing. `trace_closest_steps` takes the JAX
 trace's `max_steps` too. The kernels are compiled
 with nvcc on first use into `build/` and bound with ctypes. A CUDA tensor
 reaches the kernel or the call raises; the plain version runs only for
@@ -37,7 +42,7 @@ import os
 
 import torch
 
-from ..profiling import call_site
+from ..profiling import call_site, call_site_name, counter_row, tracing
 from . import trace as _plain
 from ._build import CSRC_DIR, build_shared_library, find_nvcc
 from .trace import Hit, SceneArrays
@@ -73,9 +78,11 @@ def bind_library(path: str) -> ctypes.CDLL:
         fn.restype = ci
         fn.argtypes = []
     lib.idk_trace_closest.restype = ci
-    lib.idk_trace_closest.argtypes = [vp] * 10 + [ci, ci, ci, vp]
+    # the last pointer, the counter row, is interface 7's; an older library
+    # ignores it
+    lib.idk_trace_closest.argtypes = [vp] * 10 + [ci, ci, ci, vp, vp]
     lib.idk_trace_any.restype = ci
-    lib.idk_trace_any.argtypes = [vp] * 7 + [ci, ci, ci, vp]
+    lib.idk_trace_any.argtypes = [vp] * 7 + [ci, ci, ci, vp, vp]
     lib.idk_trace_closest_steps.restype = ci
     lib.idk_trace_closest_steps.argtypes = [vp] * 10 + [ci, ci, vp]
     if hasattr(lib, "idk_trace_closest_steps_capped"):  # interface 5 on
@@ -106,8 +113,8 @@ def _load():
         if lib.idk_trace_stack_limit() != WIDE_STACK_LIMIT:
             raise RuntimeError(f"{TRACE_SOURCE} holds {lib.idk_trace_stack_limit()} stack "
                                f"entries a ray, the wrapper expects {WIDE_STACK_LIMIT}")
-        if lib.idk_trace_interface() < 6:
-            raise RuntimeError(f"{TRACE_SOURCE} has no two-level kernel (interface "
+        if lib.idk_trace_interface() < 7:
+            raise RuntimeError(f"{TRACE_SOURCE} has no counting trace kernel (interface "
                                f"{lib.idk_trace_interface()})")
         limits = (lib.idk_two_level_max_blas(), lib.idk_two_level_max_instances(),
                   lib.idk_two_level_tables_bytes())
@@ -221,6 +228,12 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+def _counts(dev, any_hit: bool, tag: str):
+    """The counter row of the call site while tracing (profiling.report),
+    else None: the launch then counts nothing."""
+    return _ptr(counter_row(dev, call_site_name(any_hit, tag))) if tracing() else None
+
+
 def _check_cap(max_steps):
     if max_steps is not None and not 0 <= max_steps < 2 ** 31:
         raise ValueError(f"max_steps must lie in 0..2**31-1, got {max_steps}")
@@ -252,7 +265,7 @@ def trace_closest(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
             err = _load().idk_trace_closest(
                 *_wide_tables(scene), _ptr(o), _ptr(d), _ptr(t_max), _ptr(t),
                 _ptr(slot), _ptr(u), _ptr(v), _ptr(next_ray), r, entries, scene.bvh4_leaf_bits,
-                ctypes.c_void_p(stream))
+                ctypes.c_void_p(stream), _counts(o.device, False, tag))
             _raise_on(err, "trace_closest")
             trace_closest.launches += 1
         return Hit(t=t, slot=slot, u=u, v=v)
@@ -278,7 +291,8 @@ def trace_any(scene: SceneArrays, o: torch.Tensor, d: torch.Tensor, t_max,
             stream = torch.cuda.current_stream(o.device).cuda_stream
             err = _load().idk_trace_any(
                 *_wide_tables(scene), _ptr(o), _ptr(d), _ptr(t_max), _ptr(occ),
-                _ptr(next_ray), r, entries, scene.bvh4_leaf_bits, ctypes.c_void_p(stream))
+                _ptr(next_ray), r, entries, scene.bvh4_leaf_bits, ctypes.c_void_p(stream),
+                _counts(o.device, True, tag))
             _raise_on(err, "trace_any")
             trace_any.launches += 1
         return occ

@@ -25,10 +25,10 @@ from dataclasses import dataclass
 from functools import partial
 
 import torch
-from torch.profiler import record_function
 
 from ..ops.packet_trace import trace_any, trace_closest
 from ..ops.trace import Hit
+from ..profiling import pass_scope
 
 
 def _device(dev) -> torch.device:
@@ -217,10 +217,10 @@ def shard_render(mesh: Mesh, pt):
         devices = mesh.devices[:len(ranges)]
         outs = []
         for i, (dev, rep, rng) in enumerate(zip(devices, replicas.on(devices), ranges)):
-            with _on(dev), record_function(f"shard/{i}"):
+            with _on(dev), pass_scope(f"shard/{i}"):
                 outs.append(rep._render_sample(cam_params, frame, rate_depth, pixels=rng))
         dev0 = mesh.devices[0]
-        with record_function("shard/gather"):
+        with pass_scope("shard/gather"):
             gathered = [torch.cat([o[k].to(dev0) for o in outs]) for k in range(4)]
             rays = sum(o[4].to(dev0) for o in outs)
         return (*gathered, rays)

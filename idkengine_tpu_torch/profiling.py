@@ -1,10 +1,20 @@
 """Profiling/tracing hooks. Counterpart: idkengine_tpu/profiling.py.
 
 Role of the reference's GL debug groups + TimerQuery
-(ref: BBG/Source/Computing.cs:11-16 named passes, Objects/TimerQuery.cs):
-named ranges through `torch.profiler.record_function` plus a lightweight
-host-side pass timer that works through the asynchronous launches (it
-synchronizes the value's device at scope exit).
+(ref: BBG/Source/Computing.cs:11-16 named passes, Objects/TimerQuery.cs).
+The port's spans are `torch.profiler.record_function` ranges opened through
+`pass_scope`, which records them only while a torch.profiler session is
+active (`tracing()`) and is a shared no-op otherwise, so a frame pays one
+flag check a span when nobody traces. Recorded spans share the profiler's
+clock with the device's kernels and copies, so a trace puts each device
+operation, and each idle gap of the device, under the innermost span
+around the host work. While tracing, the one-level trace kernel also counts
+its work (rays, 4-wide node records visited, triangles tested) per call
+site into a small device buffer: `report`, `reset`, `log_report`.
+
+The operator's route: `start_trace()`, N frames, `stop_trace()`, then open
+the returned Chrome-trace file in Perfetto (ui.perfetto.dev) or
+chrome://tracing.
 """
 from __future__ import annotations
 
@@ -21,8 +31,9 @@ from .log import get_logger
 
 log = get_logger(__name__)
 
-_timings: dict[str, list] = collections.defaultdict(list)
 _trace = None  # (profiler, directory) of start_trace
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch.autograd._profiler_enabled
 
 
 def _default_dir(name: str) -> str:
@@ -48,18 +59,19 @@ def synchronize(value):
         torch.cuda.synchronize(dev)
 
 
-@contextlib.contextmanager
-def pass_scope(name: str, sync_value=None):
-    """Named pass scope: a torch.profiler range; if sync_value is given,
-    synchronize its device at exit and record the wall time (TimerQuery
-    role). sync_value may be a callable that returns the value, for a value
-    made inside the scope."""
-    with record_function(name):
-        t0 = time.perf_counter()
-        yield
-        if sync_value is not None:
-            synchronize(sync_value)
-        _timings[name].append((time.perf_counter() - t0) * 1e3)
+def tracing() -> bool:
+    """Whether a torch.profiler session is active: the condition under
+    which record_function records at all."""
+    return _profiler_enabled()
+
+
+def pass_scope(name: str, args=None):
+    """The port's span: a record_function range named `name` (with
+    str(args) as its args, where given) while tracing(), else a shared
+    no-op context."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return record_function(name, None if args is None else str(args))
 
 
 def _activities():
@@ -70,8 +82,10 @@ def _activities():
 
 
 def start_trace(log_dir: str | None = None):
-    """Begin a torch.profiler trace; stop_trace writes it to `log_dir` as a
-    Chrome trace (view in chrome://tracing or Perfetto)."""
+    """Begin a torch.profiler trace of the host and, with a card, the
+    device: every span of the port is recorded until stop_trace, which
+    writes it to `log_dir` as a Chrome trace (open it in Perfetto or
+    chrome://tracing)."""
     global _trace
     if _trace is not None:
         raise RuntimeError("a trace is already running")
@@ -94,18 +108,54 @@ def stop_trace() -> str:
     return path
 
 
-def report() -> dict[str, float]:
-    """Mean ms per named pass since the last reset."""
-    return {k: sum(v) / max(len(v), 1) for k, v in _timings.items()}
+# ---------------------------------------------------------------------------
+# Traversal counters (csrc/trace.cu, trace_kernel with COUNT on)
+# ---------------------------------------------------------------------------
+
+COUNTER_FIELDS = ("rays", "nodes", "tris")
+MAX_COUNTER_SITES = 64
+_counter_rows: dict[str, int] = {}  # call-site range name -> row
+_counters: dict[torch.device, torch.Tensor] = {}  # (MAX_COUNTER_SITES, 3) int64 a device
+
+
+def counter_row(device: torch.device, site: str) -> torch.Tensor:
+    """The (3,) int64 counters (COUNTER_FIELDS) of call site `site` (a
+    call_site_name) on `device`, where a counting trace launch adds its
+    live rays, the 4-wide node records they visited and the triangles they
+    tested. Each device's buffer is allocated, zeroed, at its first use."""
+    buf = _counters.get(device)
+    if buf is None:
+        buf = _counters[device] = torch.zeros((MAX_COUNTER_SITES, len(COUNTER_FIELDS)),
+                                              dtype=torch.int64, device=device)
+    row = _counter_rows.get(site)
+    if row is None:
+        if len(_counter_rows) == MAX_COUNTER_SITES:
+            raise RuntimeError(f"more than {MAX_COUNTER_SITES} counted call sites")
+        row = _counter_rows[site] = len(_counter_rows)
+    return buf[row]
+
+
+def report() -> dict[str, dict[str, int]]:
+    """{call site: {"rays", "nodes", "tris"}} summed over the devices since
+    the last reset, for each site that counted a ray; reading waits for
+    each device's counting launches (one synchronize a device)."""
+    if not _counters:
+        return {}
+    total = sum(buf.cpu() for buf in _counters.values()).tolist()
+    return {site: dict(zip(COUNTER_FIELDS, total[row])) for site, row in _counter_rows.items()
+            if total[row][0]}
 
 
 def reset():
-    _timings.clear()
+    """Zero the counters (their buffers stay allocated)."""
+    for buf in _counters.values():
+        buf.zero_()
 
 
 def log_report():
-    for name, ms in sorted(report().items()):
-        log.info("pass %-28s %.2f ms", name, ms)
+    for site, c in sorted(report().items()):
+        log.info("%-18s %12d rays %8.2f nodes/ray %8.2f tris/ray", site, c["rays"],
+                 c["nodes"] / c["rays"], c["tris"] / c["rays"])
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +177,10 @@ def call_site_name(any_hit: bool, tag: str = "") -> str:
 
 
 def call_site(any_hit: bool, tag: str = ""):
-    """The range around a trace launch (record_function, about a
-    microsecond without a profiler); see call_site_name."""
+    """The span around a trace launch (as pass_scope's, a shared no-op
+    unless tracing()); see call_site_name."""
+    if not _profiler_enabled():
+        return _NO_SPAN
     return record_function(call_site_name(any_hit, tag))
 
 

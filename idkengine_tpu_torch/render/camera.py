@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.intersect import fma
+from ..profiling import pass_scope
 from ..utils import mathutil as mu
 
 
@@ -122,8 +123,10 @@ def generate_rays(params: dict, width: int, height: int, jitter: torch.Tensor,
     last place of the lens radius (tests/test_torch_lens.py, which also
     holds a path-traced lens image to the JAX package's)."""
     dev = jitter.device
-    vec = {k: torch.as_tensor(params[k], dtype=torch.float32, device=dev)
-           for k in ("origin", "forward", "right", "up")}
+    # four blocking host-to-device copies (the span pt/camera upload)
+    with pass_scope("pt/camera upload"):
+        vec = {k: torch.as_tensor(params[k], dtype=torch.float32, device=dev)
+               for k in ("origin", "forward", "right", "up")}
     px = torch.arange(width * height, device=dev) if pixels is None else pixels
     x = (px % width).to(torch.float32) + jitter[..., 0]
     y = torch.div(px, width, rounding_mode="floor").to(torch.float32) + jitter[..., 1]

@@ -42,6 +42,14 @@ not used, `max_trace_steps` caps each of the traces; the instanced
 models' slots follow the static slots in all three attribute tables
 (`inst_attr_srcs`, their FlatTriangles), and shading turns an instance
 hit's local-space normals and tangent frame by its normal matrix.
+
+Every stage of a frame runs in a span (profiling.pass_scope, recorded only
+while a profiler traces): pt/frame (args: the frame index) holds
+pt/raygen (with pt/camera upload), one pt/bounce a bounce (args: its
+index) and pt/accumulate; a bounce holds pt/sort, pt/closest (the trace's
+call site and pt/alpha re-traces), pt/lights, pt/shade (twice: before and
+after next-event estimation; pt/textures inside), pt/nee and pt/env nee.
+No device operation of a frame lies directly under pt/frame or pt/bounce.
 """
 from __future__ import annotations
 
@@ -50,13 +58,13 @@ from functools import partial
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops.intersect import cross3, fma, ray_sphere
 from ..ops.packet_trace import (trace_any, trace_any_two_level, trace_closest,
                                 trace_closest_two_level)
 from ..ops.two_phase import two_phase_any, two_phase_closest
 from ..ops.trace import Hit, InstanceSet, SceneArrays, linear_map
+from ..profiling import pass_scope
 from ..scene.materials import ATLAS_MIPS, LAYER_KEYS
 from ..scene.scene_db import MeshShading
 from ..utils import rng
@@ -514,7 +522,7 @@ class PathTracer:
         t_base = torch.zeros_like(t_max)
         o_cur = o
         settled = torch.zeros(t_max.shape, dtype=torch.bool, device=o.device)
-        with record_function("pt/alpha re-traces"):
+        with pass_scope("pt/alpha re-traces"):
             for _ in range(self.alpha_rounds):
                 state, keep = self._alpha_keep(hit, state)
                 has = hit.slot >= 0
@@ -542,7 +550,7 @@ class PathTracer:
         t_base = torch.zeros_like(t_max)
         o_cur = o
         active = t_max > 0.0
-        with record_function("pt/shadow alpha rounds"):
+        with pass_scope("pt/shadow alpha rounds"):
             for _ in range(self.alpha_rounds):
                 tm_rel = torch.where(active, t_max - t_base, -1.0)
                 h, _ = closest(self.scene, o_cur.contiguous(), d, tm_rel, tag=tag + "a")
@@ -601,283 +609,297 @@ class PathTracer:
         closest, occluded_fn = self._trace_functions()
         env_tables = self._env_tables
 
-        pixel_of = torch.arange(p0, p1, device=dev)  # ray i belongs to pixel pixel_of[i]
-        state = rng.init_state(pixel_of, frame)
-        # subpixel jitter + thin lens
-        state, u_pix = rng.uniform2(state)
-        state, u_lens = rng.uniform2(state)
-        o, d = generate_rays(cam_params, w, h, u_pix, u_lens, fused=True, pixels=pixel_of)
+        with pass_scope("pt/raygen"):
+            pixel_of = torch.arange(p0, p1, device=dev)  # ray i belongs to pixel pixel_of[i]
+            state = rng.init_state(pixel_of, frame)
+            # subpixel jitter + thin lens
+            state, u_pix = rng.uniform2(state)
+            state, u_lens = rng.uniform2(state)
+            o, d = generate_rays(cam_params, w, h, u_pix, u_lens, fused=True, pixels=pixel_of)
 
-        radiance = torch.zeros((r, 3), device=dev)
-        throughput = torch.ones((r, 3), device=dev)
-        alive = torch.ones(r, dtype=torch.bool, device=dev)
-        inside = torch.zeros(r, dtype=torch.bool, device=dev)
-        # last bounce was delta-like (primary/specular/transmissive): BSDF
-        # light hits count only then, NEE covers the diffuse paths
-        last_delta = torch.ones(r, dtype=torch.bool, device=dev)
-        aov_albedo = torch.zeros((r, 3), device=dev)
-        aov_normal = torch.zeros((r, 3), device=dev)
-        aov_depth = torch.zeros(r, device=dev)
-        rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
-        # ray-cone footprint for the texture LOD: one pixel wide at the
-        # camera, widened by the distance travelled and by roughness at
-        # each bounce (tracked for textured scenes only)
-        track_cone = self._has_textures
-        if track_cone:
-            up = torch.as_tensor(cam_params["up"], dtype=torch.float32, device=dev)
-            t_acc = torch.zeros(r, device=dev)
-            spread = (2.0 * torch.linalg.vector_norm(up) / h).expand(r).clone()
-        # per-pixel bounce budget (the adaptive classifier's output)
-        rd = (None if rate_depth is None else
-              torch.as_tensor(rate_depth).reshape(w * h)[p0:p1].to(dev, torch.int64))
-        # with env NEE on, NEE owns the diffuse direct env term
-        env_owns = s.env_nee and env_tables is not None
+            radiance = torch.zeros((r, 3), device=dev)
+            throughput = torch.ones((r, 3), device=dev)
+            alive = torch.ones(r, dtype=torch.bool, device=dev)
+            inside = torch.zeros(r, dtype=torch.bool, device=dev)
+            # last bounce was delta-like (primary/specular/transmissive): BSDF
+            # light hits count only then, NEE covers the diffuse paths
+            last_delta = torch.ones(r, dtype=torch.bool, device=dev)
+            aov_albedo = torch.zeros((r, 3), device=dev)
+            aov_normal = torch.zeros((r, 3), device=dev)
+            aov_depth = torch.zeros(r, device=dev)
+            rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
+            # ray-cone footprint for the texture LOD: one pixel wide at the
+            # camera, widened by the distance travelled and by roughness at
+            # each bounce (tracked for textured scenes only)
+            track_cone = self._has_textures
+            if track_cone:
+                with pass_scope("pt/camera upload"):
+                    up = torch.as_tensor(cam_params["up"], dtype=torch.float32, device=dev)
+                t_acc = torch.zeros(r, device=dev)
+                spread = (2.0 * torch.linalg.vector_norm(up) / h).expand(r).clone()
+            # per-pixel bounce budget (the adaptive classifier's output)
+            rd = (None if rate_depth is None else
+                  torch.as_tensor(rate_depth).reshape(w * h)[p0:p1].to(dev, torch.int64))
+            # with env NEE on, NEE owns the diffuse direct env term
+            env_owns = s.env_nee and env_tables is not None
 
         for bounce in range(s.ray_depth):
-            if rd is not None and bounce > 0:
-                alive = alive & (bounce < rd)
-            if s.do_ray_sorting and bounce > 0:
-                # permute the whole ray state once; it stays sorted, and
-                # the RNG state, cone and bounce budget travel with their ray
-                with record_function("pt/sort"):
-                    perm = torch.sort(self._ray_sort_key(o, d, alive)).indices
-                    fcols = [o, d, radiance, throughput]
-                    if track_cone:
-                        fcols += [t_acc[:, None], spread[:, None]]
-                    fstate = torch.cat(fcols, dim=1)[perm]
-                    o, d = fstate[:, 0:3].contiguous(), fstate[:, 3:6].contiguous()
-                    radiance, throughput = fstate[:, 6:9], fstate[:, 9:12]
-                    if track_cone:
-                        t_acc, spread = fstate[:, 12], fstate[:, 13]
-                    flags = (alive.long() | (inside.long() << 1) | (last_delta.long() << 2))
-                    icols = [state, pixel_of, flags] + ([] if rd is None else [rd])
-                    istate = torch.stack(icols, dim=1)[perm]
-                    state, pixel_of, flags = istate[:, 0], istate[:, 1], istate[:, 2]
-                    if rd is not None:
-                        rd = istate[:, 3]
-                    alive, inside, last_delta = (flags & 1) != 0, (flags & 2) != 0, (flags & 4) != 0
-            rays_traced = rays_traced + alive.sum()
-            t_max = torch.where(alive, 3.4e38, -1.0)
-            state, hit, hit_inst = self._closest_alpha(closest, state, o, d, t_max,
-                                                       "pri" if bounce == 0 else "bnc")
+            with pass_scope("pt/bounce", bounce):
+                if s.do_ray_sorting and bounce > 0:
+                    # permute the whole ray state once; it stays sorted, and
+                    # the RNG state, cone and bounce budget travel with their ray
+                    with pass_scope("pt/sort"):
+                        perm = torch.sort(self._ray_sort_key(o, d, alive)).indices
+                        fcols = [o, d, radiance, throughput]
+                        if track_cone:
+                            fcols += [t_acc[:, None], spread[:, None]]
+                        fstate = torch.cat(fcols, dim=1)[perm]
+                        o, d = fstate[:, 0:3].contiguous(), fstate[:, 3:6].contiguous()
+                        radiance, throughput = fstate[:, 6:9], fstate[:, 9:12]
+                        if track_cone:
+                            t_acc, spread = fstate[:, 12], fstate[:, 13]
+                        flags = (alive.long() | (inside.long() << 1) | (last_delta.long() << 2))
+                        icols = [state, pixel_of, flags] + ([] if rd is None else [rd])
+                        istate = torch.stack(icols, dim=1)[perm]
+                        state, pixel_of, flags = istate[:, 0], istate[:, 1], istate[:, 2]
+                        if rd is not None:
+                            rd = istate[:, 3]
+                        alive, inside, last_delta = ((flags & 1) != 0, (flags & 2) != 0,
+                                                     (flags & 4) != 0)
+                with pass_scope("pt/closest"):
+                    rays_traced = rays_traced + alive.sum()
+                    t_max = torch.where(alive, 3.4e38, -1.0)
+                    state, hit, hit_inst = self._closest_alpha(closest, state, o, d, t_max,
+                                                               "pri" if bounce == 0 else "bnc")
 
-            # analytic light spheres (ref: BVHIntersect.glsl:189-203 traces
-            # lights before the BLAS)
-            light_t = torch.full((r,), 3.4e38, device=dev)
-            light_id = torch.full((r,), -1, dtype=torch.int64, device=dev)
-            if s.light_spheres:
-                for li in range(self.n_lights):
-                    lh, lt = ray_sphere(o, d, lights["pos"][li], lights["radius"][li])
-                    closer = lh & (lt < light_t)
-                    light_t = torch.where(closer, lt, light_t)
-                    light_id = torch.where(closer, li, light_id)
+                # analytic light spheres (ref: BVHIntersect.glsl:189-203 traces
+                # lights before the BLAS)
+                with pass_scope("pt/lights"):
+                    light_t = torch.full((r,), 3.4e38, device=dev)
+                    light_id = torch.full((r,), -1, dtype=torch.int64, device=dev)
+                    if s.light_spheres:
+                        for li in range(self.n_lights):
+                            lh, lt = ray_sphere(o, d, lights["pos"][li], lights["radius"][li])
+                            closer = lh & (lt < light_t)
+                            light_t = torch.where(closer, lt, light_t)
+                            light_id = torch.where(closer, li, light_id)
 
-            hit_tri = alive & (hit.slot >= 0) & (hit.t < light_t)
-            hit_light = alive & (light_id >= 0) & ~hit_tri
-            miss = alive & ~hit_tri & ~hit_light
+                    hit_tri = alive & (hit.slot >= 0) & (hit.t < light_t)
+                    hit_light = alive & (light_id >= 0) & ~hit_tri
+                    miss = alive & ~hit_tri & ~hit_light
 
-            # miss: sky (with env NEE only on delta-like paths)
-            sky_mask = (miss & last_delta) if env_owns else miss
-            radiance = radiance + torch.where(sky_mask[..., None], throughput * self._sky(d), 0.0)
-            # light hit: emitted radiance; with NEE on only delta-like paths
-            # collect it (NEE owns the diffuse direct term)
-            if s.light_spheres and self.n_lights > 0:
-                l_emit = lights["radiance"][torch.clamp(light_id, min=0)]
-                count_hit = hit_light & (last_delta | (not s.nee))
-                radiance = radiance + torch.where(count_hit[..., None], throughput * l_emit, 0.0)
+                    # miss: sky (with env NEE only on delta-like paths)
+                    sky_mask = (miss & last_delta) if env_owns else miss
+                    radiance = radiance + torch.where(sky_mask[..., None],
+                                                      throughput * self._sky(d), 0.0)
+                    # light hit: emitted radiance; with NEE on only delta-like paths
+                    # collect it (NEE owns the diffuse direct term)
+                    if s.light_spheres and self.n_lights > 0:
+                        l_emit = lights["radiance"][torch.clamp(light_id, min=0)]
+                        count_hit = hit_light & (last_delta | (not s.nee))
+                        radiance = radiance + torch.where(count_hit[..., None],
+                                                          throughput * l_emit, 0.0)
 
-            # surface hit: one row gather of the packed slot attributes
-            slot = torch.clamp(hit.slot, min=0).long()
-            u_b, v_b = hit.u, hit.v
-            w_b = 1.0 - u_b - v_b
-            af = torch.index_select(self._attr_base, 0, slot)
-            su = torch.index_select(self._attr_surf, 0, slot) if use_surf else None
-            ax = torch.index_select(self._attr_ext, 0, slot) if use_ext else None
+                with pass_scope("pt/shade"):
+                    # surface hit: one row gather of the packed slot attributes
+                    slot = torch.clamp(hit.slot, min=0).long()
+                    u_b, v_b = hit.u, hit.v
+                    w_b = 1.0 - u_b - v_b
+                    af = torch.index_select(self._attr_base, 0, slot)
+                    su = torch.index_select(self._attr_surf, 0, slot) if use_surf else None
+                    ax = torch.index_select(self._attr_ext, 0, slot) if use_ext else None
 
-            def bits(a, lo, hi, n=1):
-                return (a[:, hi:hi + n].long() << 16) | a[:, lo:lo + n].long()
+                    def bits(a, lo, hi, n=1):
+                        return (a[:, hi:hi + n].long() << 16) | a[:, lo:lo + n].long()
 
-            n_c = decompress_normal(bits(af, _N_LO, _N_HI, 3))  # (R,3 corners,3)
-            ns = _normalize(_bary(n_c[:, 0], n_c[:, 1], n_c[:, 2], w_b[..., None],
-                                  u_b[..., None], v_b[..., None]))
-            gn = af[:, _GN:_GN + 3]
-            if hit_inst is not None:
-                # an instance's attributes are local-space: turn them by its
-                # normal matrix (ref: the TLAS path's normals to world space)
-                nm_i = self.instances.normal_mat[torch.clamp(hit_inst, min=0).long()]
-                rot = (hit_inst >= 0)[..., None]
-                gn = torch.where(rot, _normalize(linear_map(nm_i, gn)), gn)
-                ns = torch.where(rot, _normalize(linear_map(nm_i, ns)), ns)
-            # face-forward against the incoming ray
-            gn = torch.where(((gn * d).sum(-1) > 0.0)[..., None], -gn, gn)
-            ns = torch.where((ns * gn).sum(-1, keepdim=True) < 0.0, -ns, ns)
-
-            if use_surf:
-                uv = torch.stack([_bary(su[:, 0], su[:, 2], su[:, 4], w_b, u_b, v_b),
-                                  _bary(su[:, 1], su[:, 3], su[:, 5], w_b, u_b, v_b)], -1)
-                mat_id = su[:, _MAT].long()
-            lod = None
-            if track_cone:
-                # ray-cone LOD: world footprint -> UV texels through the
-                # triangle's UV density, log2 to a mip level (ref: TAA
-                # recommends a LOD bias, TAAResolve.cs:76-80)
-                texel = spread * (t_acc + hit.t) * ax[:, _UVDEN] * float(mats["atlas"].shape[1])
-                lod = torch.log2(torch.clamp(texel, min=1.0)) + s.mip_bias
-            if self._has_normal_maps:
-                # tangent-space normal mapping (ref: Surface.glsl:96-118):
-                # TBN from the per-triangle UV frame, re-orthogonalised
-                # against the interpolated shading normal
-                with record_function("pt/textures"):
-                    nl = mats["normal_layer"][mat_id]
-                    tan = decompress_normal(bits(ax, _TAN_LO, _TAN_HI))[:, 0]
-                    bit = decompress_normal(bits(ax, _BIT_LO, _BIT_HI))[:, 0]
+                    n_c = decompress_normal(bits(af, _N_LO, _N_HI, 3))  # (R,3 corners,3)
+                    ns = _normalize(_bary(n_c[:, 0], n_c[:, 1], n_c[:, 2], w_b[..., None],
+                                          u_b[..., None], v_b[..., None]))
+                    gn = af[:, _GN:_GN + 3]
                     if hit_inst is not None:
-                        tan = torch.where(rot, linear_map(nm_i, tan), tan)
-                        bit = torch.where(rot, linear_map(nm_i, bit), bit)
-                    tan = _normalize(tan - ns * (tan * ns).sum(-1, keepdim=True))
-                    bit = _normalize(bit - ns * (bit * ns).sum(-1, keepdim=True))
-                    ntan = sample_atlas(mats["atlas"], nl, uv, lod)[:, :3] * 2.0 - 1.0
-                    pert = _normalize(tan * ntan[:, 0:1] + bit * ntan[:, 1:2]
-                                      + ns * torch.clamp(ntan[:, 2:3], min=0.05))
-                    pert = torch.where((pert * gn).sum(-1, keepdim=True) < 0.0, -pert, pert)
+                        # an instance's attributes are local-space: turn them by its
+                        # normal matrix (ref: the TLAS path's normals to world space)
+                        nm_i = self.instances.normal_mat[torch.clamp(hit_inst, min=0).long()]
+                        rot = (hit_inst >= 0)[..., None]
+                        gn = torch.where(rot, _normalize(linear_map(nm_i, gn)), gn)
+                        ns = torch.where(rot, _normalize(linear_map(nm_i, ns)), ns)
+                    # face-forward against the incoming ray
+                    gn = torch.where(((gn * d).sum(-1) > 0.0)[..., None], -gn, gn)
+                    ns = torch.where((ns * gn).sum(-1, keepdim=True) < 0.0, -ns, ns)
+
+                    if use_surf:
+                        uv = torch.stack([_bary(su[:, 0], su[:, 2], su[:, 4], w_b, u_b, v_b),
+                                          _bary(su[:, 1], su[:, 3], su[:, 5], w_b, u_b, v_b)], -1)
+                        mat_id = su[:, _MAT].long()
+                    lod = None
+                    if track_cone:
+                        # ray-cone LOD: world footprint -> UV texels through the
+                        # triangle's UV density, log2 to a mip level (ref: TAA
+                        # recommends a LOD bias, TAAResolve.cs:76-80)
+                        texel = (spread * (t_acc + hit.t) * ax[:, _UVDEN]
+                                 * float(mats["atlas"].shape[1]))
+                        lod = torch.log2(torch.clamp(texel, min=1.0)) + s.mip_bias
+                    if self._has_normal_maps:
+                        # tangent-space normal mapping (ref: Surface.glsl:96-118):
+                        # TBN from the per-triangle UV frame, re-orthogonalised
+                        # against the interpolated shading normal
+                        with pass_scope("pt/textures"):
+                            nl = mats["normal_layer"][mat_id]
+                            tan = decompress_normal(bits(ax, _TAN_LO, _TAN_HI))[:, 0]
+                            bit = decompress_normal(bits(ax, _BIT_LO, _BIT_HI))[:, 0]
+                            if hit_inst is not None:
+                                tan = torch.where(rot, linear_map(nm_i, tan), tan)
+                                bit = torch.where(rot, linear_map(nm_i, bit), bit)
+                            tan = _normalize(tan - ns * (tan * ns).sum(-1, keepdim=True))
+                            bit = _normalize(bit - ns * (bit * ns).sum(-1, keepdim=True))
+                            ntan = sample_atlas(mats["atlas"], nl, uv, lod)[:, :3] * 2.0 - 1.0
+                            pert = _normalize(tan * ntan[:, 0:1] + bit * ntan[:, 1:2]
+                                              + ns * torch.clamp(ntan[:, 2:3], min=0.05))
+                            pert = torch.where((pert * gn).sum(-1, keepdim=True) < 0.0, -pert, pert)
+                            if self._has_mesh_shading:
+                                # per-mesh NormalMapStrength: lerp back toward the
+                                # interpolated normal (ref: FirstHit/compute.glsl:153)
+                                pert = _normalize(ns + (pert - ns) * ax[:, _SHADE + 1:_SHADE + 2])
+                            ns = torch.where((nl >= 0)[..., None], pert, ns)
+
+                    albedo = af[:, _ALBEDO:_ALBEDO + 3]
+                    emissive = af[:, _EMISSIVE:_EMISSIVE + 3]
+                    metallic = af[:, _METALLIC]
+                    roughness = af[:, _ROUGH]
+                    transmission = af[:, _TRANS]
+                    ior = af[:, _IOR]
+                    absorb = af[:, _ABSORB:_ABSORB + 3]
+                    if self._has_textures:
+                        with pass_scope("pt/textures"):
+                            atlas = mats["atlas"]
+                            base, mr, em = (sample_atlas(atlas, mats[k][mat_id], uv, lod) for k in
+                                            ("base_layer", "mr_layer", "emissive_layer"))
+                            albedo = albedo * base[:, :3]
+                            metallic = metallic * mr[:, 2]
+                            roughness = roughness * mr[:, 1]
+                            emissive = emissive * em[:, :3]
+                    tint_on_trans = None
                     if self._has_mesh_shading:
-                        # per-mesh NormalMapStrength: lerp back toward the
-                        # interpolated normal (ref: FirstHit/compute.glsl:153)
-                        pert = _normalize(ns + (pert - ns) * ax[:, _SHADE + 1:_SHADE + 2])
-                    ns = torch.where((nl >= 0)[..., None], pert, ns)
+                        # per-mesh overrides after texturing (ref: Surface.glsl:85-96
+                        # SurfaceApplyModificatons)
+                        sh = ax[:, _SHADE:_SHADE + 10]
+                        emissive = fma(sh[:, 0:1], albedo, emissive)
+                        metallic = torch.clamp(metallic + sh[:, 2], 0.0, 1.0)
+                        roughness = torch.clamp(roughness + sh[:, 3], 0.0, 1.0)
+                        transmission = torch.clamp(transmission + sh[:, 4], 0.0, 1.0)
+                        ior = torch.clamp(ior + sh[:, 5], min=1.0)
+                        absorb = torch.clamp(absorb + sh[:, 6:9], min=0.0)
+                        tint_on_trans = sh[:, 9] > 0.5
 
-            albedo = af[:, _ALBEDO:_ALBEDO + 3]
-            emissive = af[:, _EMISSIVE:_EMISSIVE + 3]
-            metallic = af[:, _METALLIC]
-            roughness = af[:, _ROUGH]
-            transmission = af[:, _TRANS]
-            ior = af[:, _IOR]
-            absorb = af[:, _ABSORB:_ABSORB + 3]
-            if self._has_textures:
-                with record_function("pt/textures"):
-                    atlas = mats["atlas"]
-                    base, mr, em = (sample_atlas(atlas, mats[k][mat_id], uv, lod) for k in
-                                    ("base_layer", "mr_layer", "emissive_layer"))
-                    albedo = albedo * base[:, :3]
-                    metallic = metallic * mr[:, 2]
-                    roughness = roughness * mr[:, 1]
-                    emissive = emissive * em[:, :3]
-            tint_on_trans = None
-            if self._has_mesh_shading:
-                # per-mesh overrides after texturing (ref: Surface.glsl:85-96
-                # SurfaceApplyModificatons)
-                sh = ax[:, _SHADE:_SHADE + 10]
-                emissive = fma(sh[:, 0:1], albedo, emissive)
-                metallic = torch.clamp(metallic + sh[:, 2], 0.0, 1.0)
-                roughness = torch.clamp(roughness + sh[:, 3], 0.0, 1.0)
-                transmission = torch.clamp(transmission + sh[:, 4], 0.0, 1.0)
-                ior = torch.clamp(ior + sh[:, 5], min=1.0)
-                absorb = torch.clamp(absorb + sh[:, 6:9], min=0.0)
-                tint_on_trans = sh[:, 9] > 0.5
+                    if bounce == 0:
+                        aov_albedo = torch.where(hit_tri[..., None], albedo, aov_albedo)
+                        aov_normal = torch.where(hit_tri[..., None], ns, aov_normal)
+                        aov_depth = torch.where(hit_tri, hit.t, aov_depth)
 
-            if bounce == 0:
-                aov_albedo = torch.where(hit_tri[..., None], albedo, aov_albedo)
-                aov_normal = torch.where(hit_tri[..., None], ns, aov_normal)
-                aov_depth = torch.where(hit_tri, hit.t, aov_depth)
-
-            # Beer–Lambert absorbance through the medium
-            # (ref: FirstHit/compute.glsl:179-183)
-            seg = torch.clamp(hit.t, max=1e30)
-            att = torch.exp(-absorb * torch.where(inside, seg, 0.0)[..., None])
-            throughput = torch.where(hit_tri[..., None], throughput * att, throughput)
-            radiance = radiance + torch.where(hit_tri[..., None], throughput * emissive, 0.0)
-
-            hp_point = o + d * hit.t[..., None]
-            eps_o = 1e-4 * torch.clamp(torch.linalg.vector_norm(hp_point, dim=-1), min=1.0)
-
-            # next-event estimation: one light per ray, one shadow ray
-            # (solid-angle sampling, ref: Sampling.glsl + ShadowsRayTraced)
-            if s.nee and s.light_spheres and self.n_lights > 0:
-                with record_function("pt/nee"):
-                    state, u_pick = rng.uniform(state)
-                    li = torch.clamp((u_pick * self.n_lights).long(), max=self.n_lights - 1)
-                    l_pos = lights["pos"][li]
-                    l_rad = lights["radius"][li]
-                    l_emit = lights["radiance"][li]
-                    state, u_l = rng.uniform2(state)
-                    ldir, lpdf, _ = sampling.sphere_light_sample(hp_point, l_pos, l_rad, u_l)
-                    cos_s = torch.clamp((ns * ldir).sum(-1), min=0.0)
-                    # distance to the sphere surface along ldir
-                    sh_hit, sh_t = ray_sphere(hp_point, ldir, l_pos, l_rad)
-                    do_nee = hit_tri & (cos_s > 0.0) & sh_hit
-                    rays_traced = rays_traced + do_nee.sum()
-                    sh_tmax = torch.where(do_nee, sh_t - 2.0 * eps_o, -1.0)
-                    sh_o = hp_point + gn * eps_o[..., None]
-                    state, occluded = self._shadow_occluded(closest, occluded_fn, state,
-                                                            sh_o.contiguous(), ldir.contiguous(),
-                                                            sh_tmax, "nee")
-                    # full GGX BRDF (diffuse + rough specular); near-delta
-                    # specular and transmission are left to BSDF sampling
-                    brdf_cos = shading.ggx_brdf(ns, -d, ldir, albedo, metallic, roughness)
-                    brdf_cos = brdf_cos * (1.0 - transmission)[..., None]
-                    contrib = (throughput * brdf_cos * l_emit
-                               / torch.clamp(lpdf, min=1e-8)[..., None] * float(self.n_lights))
-                    radiance = radiance + torch.where((do_nee & ~occluded)[..., None], contrib,
+                    # Beer–Lambert absorbance through the medium
+                    # (ref: FirstHit/compute.glsl:179-183)
+                    seg = torch.clamp(hit.t, max=1e30)
+                    att = torch.exp(-absorb * torch.where(inside, seg, 0.0)[..., None])
+                    throughput = torch.where(hit_tri[..., None], throughput * att, throughput)
+                    radiance = radiance + torch.where(hit_tri[..., None], throughput * emissive,
                                                       0.0)
 
-            # next-event estimation toward the environment map: the alias
-            # table draws a bright texel and a shadow ray (unbounded) tests
-            # the sky's visibility
-            if s.nee and env_owns:
-                with record_function("pt/env nee"):
-                    state, u_e1 = rng.uniform(state)
-                    state, u_e2 = rng.uniform(state)
-                    state, u_ej = rng.uniform2(state)
-                    edir, epdf = envsample.sample(env_tables, u_e1, u_e2, u_ej)
-                    cos_e = torch.clamp((ns * edir).sum(-1), min=0.0)
-                    do_enee = hit_tri & (cos_e > 0.0) & (epdf > 0.0)
-                    e_tmax = torch.where(do_enee, 3.4e38, -1.0)
-                    rays_traced = rays_traced + do_enee.sum()
-                    e_o = (hp_point + gn * eps_o[..., None]).contiguous()
-                    state, occluded_e = self._shadow_occluded(closest, occluded_fn, state, e_o,
-                                                              edir.contiguous(), e_tmax, "env")
-                    brdf_e = shading.ggx_brdf(ns, -d, edir, albedo, metallic, roughness)
-                    brdf_e = brdf_e * (1.0 - transmission)[..., None]
-                    contrib_e = (throughput * brdf_e * self._sky(edir)
-                                 / torch.clamp(epdf, min=1e-8)[..., None])
-                    radiance = radiance + torch.where((do_enee & ~occluded_e)[..., None],
-                                                      contrib_e, 0.0)
+                    hp_point = o + d * hit.t[..., None]
+                    eps_o = 1e-4 * torch.clamp(torch.linalg.vector_norm(hp_point, dim=-1), min=1.0)
 
-            state, u_lobe = rng.uniform(state)
-            state, u_dir = rng.uniform2(state)
-            # transmission tint (ref: Shading.glsl:136-144): albedo when
-            # entering or volumetric, unless the mesh's TintOnTransmissive
-            # flag clears it
-            wants_tint = (absorb > 0.0).any(dim=-1) | ~inside
-            if tint_on_trans is not None:
-                wants_tint = wants_tint & tint_on_trans
-            trans_tint = torch.where(wants_tint[..., None], albedo, 1.0)
-            surf = shading.sample_bsdf(d, ns, albedo, metallic, roughness, transmission,
-                                       ior, inside, u_lobe, u_dir, trans_tint=trans_tint)
-            side = torch.where(surf.is_transmissive[..., None], -gn, gn)
-            o = torch.where(hit_tri[..., None], hp_point + side * eps_o[..., None], o)
-            d = torch.where(hit_tri[..., None], surf.direction, d)
-            throughput = torch.where(hit_tri[..., None], throughput * surf.throughput_mul,
-                                     throughput)
-            inside = torch.where(hit_tri & surf.is_transmissive, ~inside, inside)
-            if track_cone:
-                t_acc = t_acc + torch.where(hit_tri, hit.t, 0.0)
-                spread = spread + torch.where(hit_tri, 0.35 * roughness, 0.0)
-            # delta-like only when the specular lobe is mirror-sharp; rough
-            # specular is covered by the NEE GGX term
-            last_delta = (surf.is_specular & (roughness < 0.15)) | surf.is_transmissive
-            alive = hit_tri
+                # next-event estimation: one light per ray, one shadow ray
+                # (solid-angle sampling, ref: Sampling.glsl + ShadowsRayTraced)
+                if s.nee and s.light_spheres and self.n_lights > 0:
+                    with pass_scope("pt/nee"):
+                        state, u_pick = rng.uniform(state)
+                        li = torch.clamp((u_pick * self.n_lights).long(), max=self.n_lights - 1)
+                        l_pos = lights["pos"][li]
+                        l_rad = lights["radius"][li]
+                        l_emit = lights["radiance"][li]
+                        state, u_l = rng.uniform2(state)
+                        ldir, lpdf, _ = sampling.sphere_light_sample(hp_point, l_pos, l_rad, u_l)
+                        cos_s = torch.clamp((ns * ldir).sum(-1), min=0.0)
+                        # distance to the sphere surface along ldir
+                        sh_hit, sh_t = ray_sphere(hp_point, ldir, l_pos, l_rad)
+                        do_nee = hit_tri & (cos_s > 0.0) & sh_hit
+                        rays_traced = rays_traced + do_nee.sum()
+                        sh_tmax = torch.where(do_nee, sh_t - 2.0 * eps_o, -1.0)
+                        sh_o = hp_point + gn * eps_o[..., None]
+                        state, occluded = self._shadow_occluded(
+                            closest, occluded_fn, state, sh_o.contiguous(), ldir.contiguous(),
+                            sh_tmax, "nee")
+                        # full GGX BRDF (diffuse + rough specular); near-delta
+                        # specular and transmission are left to BSDF sampling
+                        brdf_cos = shading.ggx_brdf(ns, -d, ldir, albedo, metallic, roughness)
+                        brdf_cos = brdf_cos * (1.0 - transmission)[..., None]
+                        contrib = (throughput * brdf_cos * l_emit
+                                   / torch.clamp(lpdf, min=1e-8)[..., None] * float(self.n_lights))
+                        radiance = radiance + torch.where((do_nee & ~occluded)[..., None], contrib,
+                                                          0.0)
 
-            # russian roulette (ref: include/RussianRoulette.glsl)
-            if s.russian_roulette and bounce >= s.rr_min_bounce:
-                p = torch.clamp(throughput.amax(dim=-1), 0.02, 1.0)
-                state, u_rr = rng.uniform(state)
-                throughput = throughput / p[..., None]
-                alive = alive & (u_rr < p)
+                # next-event estimation toward the environment map: the alias
+                # table draws a bright texel and a shadow ray (unbounded) tests
+                # the sky's visibility
+                if s.nee and env_owns:
+                    with pass_scope("pt/env nee"):
+                        state, u_e1 = rng.uniform(state)
+                        state, u_e2 = rng.uniform(state)
+                        state, u_ej = rng.uniform2(state)
+                        edir, epdf = envsample.sample(env_tables, u_e1, u_e2, u_ej)
+                        cos_e = torch.clamp((ns * edir).sum(-1), min=0.0)
+                        do_enee = hit_tri & (cos_e > 0.0) & (epdf > 0.0)
+                        e_tmax = torch.where(do_enee, 3.4e38, -1.0)
+                        rays_traced = rays_traced + do_enee.sum()
+                        e_o = (hp_point + gn * eps_o[..., None]).contiguous()
+                        state, occluded_e = self._shadow_occluded(closest, occluded_fn, state, e_o,
+                                                                  edir.contiguous(), e_tmax, "env")
+                        brdf_e = shading.ggx_brdf(ns, -d, edir, albedo, metallic, roughness)
+                        brdf_e = brdf_e * (1.0 - transmission)[..., None]
+                        contrib_e = (throughput * brdf_e * self._sky(edir)
+                                     / torch.clamp(epdf, min=1e-8)[..., None])
+                        radiance = radiance + torch.where((do_enee & ~occluded_e)[..., None],
+                                                          contrib_e, 0.0)
+
+                with pass_scope("pt/shade"):
+                    state, u_lobe = rng.uniform(state)
+                    state, u_dir = rng.uniform2(state)
+                    # transmission tint (ref: Shading.glsl:136-144): albedo when
+                    # entering or volumetric, unless the mesh's TintOnTransmissive
+                    # flag clears it
+                    wants_tint = (absorb > 0.0).any(dim=-1) | ~inside
+                    if tint_on_trans is not None:
+                        wants_tint = wants_tint & tint_on_trans
+                    trans_tint = torch.where(wants_tint[..., None], albedo, 1.0)
+                    surf = shading.sample_bsdf(d, ns, albedo, metallic, roughness, transmission,
+                                               ior, inside, u_lobe, u_dir, trans_tint=trans_tint)
+                    side = torch.where(surf.is_transmissive[..., None], -gn, gn)
+                    o = torch.where(hit_tri[..., None], hp_point + side * eps_o[..., None], o)
+                    d = torch.where(hit_tri[..., None], surf.direction, d)
+                    throughput = torch.where(hit_tri[..., None], throughput * surf.throughput_mul,
+                                             throughput)
+                    inside = torch.where(hit_tri & surf.is_transmissive, ~inside, inside)
+                    if track_cone:
+                        t_acc = t_acc + torch.where(hit_tri, hit.t, 0.0)
+                        spread = spread + torch.where(hit_tri, 0.35 * roughness, 0.0)
+                    # delta-like only when the specular lobe is mirror-sharp; rough
+                    # specular is covered by the NEE GGX term
+                    last_delta = (surf.is_specular & (roughness < 0.15)) | surf.is_transmissive
+                    alive = hit_tri
+
+                    # russian roulette (ref: include/RussianRoulette.glsl)
+                    if s.russian_roulette and bounce >= s.rr_min_bounce:
+                        p = torch.clamp(throughput.amax(dim=-1), 0.02, 1.0)
+                        state, u_rr = rng.uniform(state)
+                        throughput = throughput / p[..., None]
+                        alive = alive & (u_rr < p)
+                    # the bounce budget of the next bounce
+                    if rd is not None and bounce + 1 < s.ray_depth:
+                        alive = alive & (bounce + 1 < rd)
 
         if s.do_ray_sorting and s.ray_depth > 1:
-            # back to pixel order
-            radiance = torch.empty_like(radiance).index_copy_(0, pixel_of - p0, radiance)
+            with pass_scope("pt/accumulate"):
+                # back to pixel order
+                radiance = torch.empty_like(radiance).index_copy_(0, pixel_of - p0, radiance)
         return radiance, aov_albedo, aov_normal, aov_depth, rays_traced
 
     # ----------------------------------------------------------------
@@ -899,20 +921,21 @@ class PathTracer:
             self._env_tables = envsample.EnvSampler(self.env_map.cpu().numpy(),
                                                     device=self.device).tables
         cam_params = camera.ray_params(self.width, self.height)
-        rays = torch.zeros((), dtype=torch.int64, device=self.device)
-        for _ in range(s.spp_per_frame):
-            radiance, alb, nrm, dep, nrays = sample(cam_params, self._frame, rate_depth)
-            n = self.accumulated_samples
-            self.accum = (self.accum * n + radiance) / (n + 1)
-            lum = radiance[:, 0] * 0.2126 + radiance[:, 1] * 0.7152 + radiance[:, 2] * 0.0722
-            self.accum_lum2 = (self.accum_lum2 * n + lum * lum) / (n + 1)
-            self.accumulated_samples = n + 1
-            self._frame += 1
-            self._last_aovs = (alb, nrm, dep)
-            rays = nrays
-        # rays traced (closest + shadow) by the frame's last sample; a device
-        # scalar, float() to read
-        self.last_rays_traced = rays.float()
+        with pass_scope("pt/frame", self._frame):
+            for _ in range(s.spp_per_frame):
+                radiance, alb, nrm, dep, nrays = sample(cam_params, self._frame, rate_depth)
+                with pass_scope("pt/accumulate"):
+                    n = self.accumulated_samples
+                    self.accum = (self.accum * n + radiance) / (n + 1)
+                    lum = (radiance[:, 0] * 0.2126 + radiance[:, 1] * 0.7152
+                           + radiance[:, 2] * 0.0722)
+                    self.accum_lum2 = (self.accum_lum2 * n + lum * lum) / (n + 1)
+                    self.accumulated_samples = n + 1
+                    self._frame += 1
+                    self._last_aovs = (alb, nrm, dep)
+                    # rays traced (closest + shadow) by the frame's last
+                    # sample; a device scalar, float() to read
+                    self.last_rays_traced = nrays.float()
         return self.image()
 
     def image(self) -> torch.Tensor:

@@ -27,10 +27,10 @@ from functools import partial
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops.packet_trace import trace_any, trace_closest
 from ..parallel.shard import ShardedPathTracer, make_mesh
+from ..profiling import pass_scope
 from ..utils import mathutil as mu
 from ..utils.compression import decompress_normal
 from . import adaptive as adaptive_mod
@@ -188,13 +188,13 @@ class DeferredPipeline:
         # profiler runs)
         # [VXGI] voxelize + mips (ref: Voxelizer.Render)
         if s.use_vxgi and n_lights > 0:
-            with record_function("deferred/voxelize"):
+            with pass_scope("deferred/voxelize"):
                 self.voxel_grid.voxelize(scene, self.mats, lights, n_lights, frame=self.frame,
                                          occlusion_fn=occluded)
 
         # G-buffer (primary visibility); TAA and TAAU bias the texture LOD
         # (ref: TAAResolve.cs:76-80)
-        with record_function("deferred/G-buffer"):
+        with pass_scope("deferred/G-buffer"):
             bias = taa_mod.mip_bias(w, self.width) if (rs > 1 or s.use_taa) else 0.0
             gbuf = render_gbuffer(closest, scene, self.mats, cam_params, prev_cam, w, h,
                                   jitter=torch.as_tensor(jitter, dtype=torch.float32),
@@ -205,7 +205,7 @@ class DeferredPipeline:
         # its basis
         ao = None
         if s.use_ssao:
-            with record_function("deferred/SSAO"):
+            with pass_scope("deferred/SSAO"):
                 cam = {k: torch.as_tensor(cam_params[k], device=dev)
                        for k in ("origin", "forward", "right", "up")}
                 rel = gbuf.position - cam["origin"]
@@ -217,7 +217,7 @@ class DeferredPipeline:
         # cone-traced GI
         gi = None
         if s.use_vxgi and self.voxel_grid.radiance is not None:
-            with record_function("deferred/cone trace"):
+            with pass_scope("deferred/cone trace"):
                 r = w * h
                 gi = self.voxel_grid.cone_trace(gbuf.position.reshape(r, 3),
                                                 gbuf.normal.reshape(r, 3),
@@ -228,7 +228,7 @@ class DeferredPipeline:
         # rebuilt only when its light moved or a culled face came into view
         pcf_fn = None
         if s.shadows == "pcf" and n_lights > 0:
-            with record_function("deferred/pcf build"):
+            with pass_scope("deferred/pcf build"):
                 if self._shadow_mgr is None:
                     self._shadow_mgr = shadowmap_mod.PointShadowManager(
                         lambda o, d, tm: trace_closest(self.db.device_scene, o, d, tm).t,
@@ -243,7 +243,7 @@ class DeferredPipeline:
         occ = occluded if s.shadows == "ray_traced" else None
         dsettings = (replace(s.deferred, shadow_mode=s.shadows)
                      if s.shadows != s.deferred.shadow_mode else s.deferred)
-        with record_function("deferred/lighting + shadows"):
+        with pass_scope("deferred/lighting + shadows"):
             color = deferred_mod.shade_deferred(gbuf, lights, n_lights, cam_params["origin"],
                                                 occ, dsettings, gi=gi, ao=ao, frame=self.frame,
                                                 pcf_fn=pcf_fn)
@@ -251,14 +251,14 @@ class DeferredPipeline:
         # depth-peeled OIT over the opaque result (ref: RecordTransparent/
         # ResolveTransparent; the layers arrive in depth order)
         if s.use_oit:
-            with record_function("deferred/oit"):
+            with pass_scope("deferred/oit"):
                 color = self._composite_transparency(color, cam_params, jitter, lights,
                                                      n_lights, closest, occluded)
 
         # SSR merge (ref: SSR then MergeTextures); misses fall back to the
         # sky along the reflected direction (ref: SSR/compute.glsl:79-81)
         if s.use_ssr:
-            with record_function("deferred/ssr"):
+            with pass_scope("deferred/ssr"):
                 refl, _, _ = ssr_mod.ssr(color, gbuf.position, gbuf.normal, gbuf.depth,
                                          cam_params, settings=s.ssr)
                 f = (1.0 - gbuf.roughness[..., None]) * gbuf.mask[..., None]
@@ -267,19 +267,19 @@ class DeferredPipeline:
         # volumetric light, shadow-traced at every march sample (ref:
         # VolumetricLight/compute.glsl:79)
         if s.use_volumetric and n_lights > 0:
-            with record_function("deferred/volumetric"):
+            with pass_scope("deferred/volumetric"):
                 color = color + vol_mod.volumetric_light(
                     gbuf.position, gbuf.depth, cam_params["origin"], lights["pos"],
                     lights["radiance"], n_lights, occluded if s.shadows != "none" else None)
 
         if s.use_bloom:
-            with record_function("deferred/bloom"):
+            with pass_scope("deferred/bloom"):
                 color = color + bloom_mod.bloom(color, s.bloom)
 
         # TAA resolve at native resolution, or the TAAU resolve that
         # reconstructs display resolution from the jittered low-res frames
         if rs > 1:
-            with record_function("deferred/taau"):
+            with pass_scope("deferred/taau"):
                 vel_hr = upscale_mod.upsample_bilinear(gbuf.velocity, rs) * rs
                 up_set = s.upscale if s.upscale.scale == rs else replace(s.upscale, scale=rs)
                 self.history = upscale_mod.taau_resolve(
@@ -287,7 +287,7 @@ class DeferredPipeline:
                     (float(jitter[0]) - 0.5, float(jitter[1]) - 0.5), up_set)
                 color = self.history[..., :3]
         elif s.use_taa:
-            with record_function("deferred/TAA"):
+            with pass_scope("deferred/TAA"):
                 if self.history is None:
                     self.history = color
                 color = taa_mod.taa_resolve(color, self.history, gbuf.velocity,
@@ -297,12 +297,12 @@ class DeferredPipeline:
         # adaptive-rate classifier map (ref: VRS tiles; consumers can feed it
         # back as per-tile sample budgets)
         if s.use_classifier:
-            with record_function("deferred/classify"):
+            with pass_scope("deferred/classify"):
                 self.rate_map = adaptive_mod.classify(color, gbuf.velocity)
 
         self._prev_cam_params = cam_params
         self.frame += 1
-        with record_function("deferred/tonemap"):
+        with pass_scope("deferred/tonemap"):
             return tonemap_mod.tonemap(color, s.tonemap)
 
     def _composite_transparency(self, opaque_color, cam_params, jitter, lights, n_lights,
@@ -428,11 +428,11 @@ class PathTracerPipeline:
         _check_pt_settings(s)
         h, w = self.height, self.width
         # each pass is a named range for torch.profiler
-        with record_function("pt_sample"):
+        with pass_scope("pt_sample"):
             img = self.pt.render_frame(camera, rate_depth=self._rate_depth)
         alb, nrm, dep = self.pt._last_aovs
         if s.adaptive_rate and self.pt.accumulated_samples >= 2:
-            with record_function("classify"):
+            with pass_scope("classify"):
                 rate = adaptive_mod.classify(img, torch.zeros((h, w, 2), device=img.device))
                 self._rate_depth = adaptive_mod.bounce_budget(rate, self.pt.settings.ray_depth,
                                                               w, h)
@@ -442,12 +442,12 @@ class PathTracerPipeline:
             return nrm.reshape(h, w, 3) * 0.5 + 0.5
         color = img
         if s.output == "denoised" and self.pt.accumulated_samples >= s.denoise_at_samples:
-            with record_function("denoise"):
+            with pass_scope("denoise"):
                 color = denoise_mod.atrous_denoise(
                     img, alb.reshape(h, w, 3), nrm.reshape(h, w, 3), dep.reshape(h, w),
                     s.denoise, variance=self.pt.variance())
         if s.use_bloom:
-            with record_function("bloom"):
+            with pass_scope("bloom"):
                 color = color + bloom_mod.bloom(color, s.bloom)
-        with record_function("tonemap"):
+        with pass_scope("tonemap"):
             return tonemap_mod.tonemap(color, s.tonemap)

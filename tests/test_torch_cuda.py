@@ -1443,3 +1443,140 @@ def test_dryrun_small_on_card(dev):
 
     out = dryrun_multichip(mesh=Mesh((dev,) * 4), small=True)
     assert out["pixels_differ"] == 0 and out["rmse"] == 0.0
+
+
+def _counted(monkeypatch, fn):
+    """fn() with the trace wrappers counting (as under a profiler) into
+    fresh counters: (its result, profiling.report())."""
+    from idkengine_tpu_torch import profiling
+
+    monkeypatch.setattr(kern, "tracing", lambda: True)
+    monkeypatch.setattr(profiling, "_counters", {})
+    monkeypatch.setattr(profiling, "_counter_rows", {})
+    out = fn()
+    return out, profiling.report()
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("kind", ["incoherent", "dead_and_zero", "from_1e8"])
+def test_counting_kernels_equal_the_plain_ones(dev, scenes, kind, monkeypatch):
+    """The counting trace kernels return the plain kernels' results bit for
+    bit, count every live ray (t_max not below 0) once, and repeat their
+    counts exactly from run to run."""
+    _, sc, _ = scenes
+    o, d, t_max = _rays_of(kind, sc, 1 << 16, 41, dev)
+
+    def both():
+        return (kern.trace_closest(sc, o, d, t_max, tag="bnc"),
+                kern.trace_any(sc, o, d, t_max, tag="nee"))
+
+    hit, occ = both()
+    live = int((~(t_max < 0)).sum())
+    reports = []
+    for _ in range(2):
+        (c_hit, c_occ), report = _counted(monkeypatch, both)
+        for a, b in zip(hit, c_hit):
+            assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(occ, c_occ)
+        reports.append(report)
+    assert reports[0] == reports[1]
+    assert reports[0]["pt_closest_bnc"]["rays"] == live == reports[0]["pt_any_nee"]["rays"]
+    for row in reports[0].values():
+        assert row["nodes"] >= row["rays"] and row["tris"] > 0
+
+
+MISS_KEY = 0x7FFFFFFF
+
+
+def _wide_walk_counts(sc, o, d, t_max, any_hit: bool):
+    """(records fetched, triangles tested) summed over the rays of
+    csrc/trace.cu's walk_wide, replayed on the host: the slab tests of
+    every record's children and the Möller–Trumbore test of every triangle
+    for every ray, computed as the kernel computes them, then each live
+    ray's walk in the kernel's order (the sorting network on the entry
+    distance's bits, the far children pushed first, a popped child culled
+    beyond the best hit, the any-hit walk stopped at its first)."""
+    from idkengine_tpu_torch.ops.intersect import ray_triangle
+
+    rec = sc.bvh4_nodes.cpu()
+    m = rec.shape[0]
+    box = rec[:, :24].contiguous().view(torch.float32).reshape(m, 6, 4)
+    lo, hi = box[:, 0::2].permute(0, 2, 1), box[:, 1::2].permute(0, 2, 1)  # (M,4,3)
+    oc, dc, tm = o.cpu(), d.cpu(), t_max.cpu().tolist()
+    inv = plain.inverse_direction(dc)[:, None, None]
+    t0 = (lo[None] - oc[:, None, None]) * inv
+    t1 = (hi[None] - oc[:, None, None]) * inv
+    tn = torch.clamp(torch.minimum(t0, t1).amax(-1), min=0.0)  # (R,M,4)
+    tf = torch.maximum(t0, t1).amin(-1)
+    key = tn.view(torch.int32)
+    tv = sc.tri_vec.cpu()
+    tri_hit, tri_t, _, _ = ray_triangle(oc[:, None], dc[:, None], tv[None, :, 0:3],
+                                        tv[None, :, 3:6], tv[None, :, 6:9])
+    refs, counts = rec[:, 24:28].tolist(), rec[:, 28].tolist()
+    bits = sc.bvh4_leaf_bits
+    nodes = tris = 0
+    for i in range(oc.shape[0]):
+        t_best = tm[i]
+        if t_best < 0:
+            continue
+        tn_i, tf_i, key_i = tn[i].tolist(), tf[i].tolist(), key[i].tolist()
+        hit_i, t_i = tri_hit[i].tolist(), tri_t[i].tolist()
+        stack, code, found = [], 0, False
+        while True:
+            if code >= 0:
+                nodes += 1
+                k = [key_i[code][j] if (j < counts[code] and tf_i[code][j] >= tn_i[code][j]
+                                        and tn_i[code][j] <= t_best) else MISS_KEY
+                     for j in range(4)]
+                c = list(refs[code])
+                dist = list(tn_i[code])
+                for a, b in ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)):
+                    if k[b] < k[a]:
+                        k[a], k[b], c[a], c[b], dist[a], dist[b] = (k[b], k[a], c[b], c[a],
+                                                                    dist[b], dist[a])
+                if k[0] != MISS_KEY:
+                    code = c[0]
+                    stack += [(c[j], dist[j]) for j in (3, 2, 1) if k[j] != MISS_KEY]
+                    continue
+            else:
+                leaf = ~code
+                first, count = leaf >> bits, (leaf & ((1 << bits) - 1)) + 1
+                for s in range(first, first + count):
+                    tris += 1
+                    if hit_i[s] and t_i[s] < t_best:
+                        t_best, found = t_i[s], True
+                        if any_hit:
+                            break
+                if any_hit and found:
+                    break
+            while stack:
+                code, dist0 = stack.pop()
+                if dist0 <= t_best:
+                    break
+            else:
+                break
+    return nodes, tris
+
+
+def test_counts_equal_a_host_recount_of_the_walk(dev, monkeypatch):
+    """On a 3,016-triangle atrium, the counting kernels' records and
+    triangles equal a host replay of the same 4-wide walk, closest and
+    any-hit, with dead rays among the live."""
+    db = SceneDatabase(BuildSettings(**BUILD))
+    db.add_model(atrium(3000))
+    sc = db.build(dev)
+    o, d, t_max = _rays_of("dead_and_zero", sc, 384, 43, dev)
+    t_any = torch.where(t_max > 0, torch.clamp(t_max, max=4.0), t_max)
+
+    def both():
+        return (kern.trace_closest(sc, o, d, t_max, tag="pri"),
+                kern.trace_any(sc, o, d, t_any, tag="nee"))
+
+    _, report = _counted(monkeypatch, both)
+    live = int((~(t_max < 0)).sum())
+    for site, tm, any_hit in (("pt_closest_pri", t_max, False), ("pt_any_nee", t_any, True)):
+        nodes, tris = _wide_walk_counts(sc, o, d, tm, any_hit)
+        assert report[site] == {"rays": live, "nodes": nodes, "tris": tris}, site

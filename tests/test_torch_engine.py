@@ -312,16 +312,27 @@ def test_viewer_input_ppm_and_toggles_headless():
 
 
 def test_pass_scope_records_timings():
-    profiling.reset()
+    """pass_scope records a span (with its args) only under a profiler,
+    which times it on the profiler's clock; without one it is a shared
+    no-op. The counters' report is empty on the CPU (no counting kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
     x = torch.ones(64)
-    for _ in range(3):
-        with profiling.pass_scope("test/pass", sync_value=x):
-            x = x * 2
-    with profiling.pass_scope("test/no sync"):
-        pass
-    rep = profiling.report()
-    assert set(rep) == {"test/pass", "test/no sync"} and rep["test/pass"] >= 0.0
-    assert len(profiling._timings["test/pass"]) == 3
+    assert not profiling.tracing()
+    assert profiling.pass_scope("test/pass") is profiling.pass_scope("test/other", 3)
+    with profiling.pass_scope("test/untraced"):
+        x = x * 2
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert profiling.tracing()
+        for i in range(3):
+            with profiling.pass_scope("test/pass", i):
+                x = x * 2
+    assert not profiling.tracing()
+    timed = [e for e in prof.events() if e.name == "test/pass"]
+    assert len(timed) == 3 and all(e.cpu_time_total >= 0.0 for e in timed)
+    assert not [e for e in prof.events() if e.name == "test/untraced"]
+    profiling.reset()
+    assert profiling.report() == {}
     profiling.log_report()
     assert profiling.capture_device_profile(lambda: x * 2) == {}  # no card: no device time
     # a hand kernel outside any call-site range is the JAX package's untagged
@@ -341,3 +352,26 @@ def test_pass_scope_records_timings():
     assert profiling.bucket("scatter_max_kernel") == "voxelize"
     profiling.reset()
     assert profiling.report() == {}
+
+
+def test_run_headless_runs_each_frame_in_a_span():
+    """Engine.run_headless: each iteration is one engine/frame span (args:
+    the iteration), the path-traced frame's pt/frame inside it; on_frame
+    sees each image."""
+    from torch.profiler import ProfilerActivity, profile
+
+    db = SceneDatabase(BuildSettings(max_leaf_triangle_count=12, traversal_cost=4.0))
+    db.add_model(cornell_box(emissive_quad=False))
+    db.build("cpu")
+    db.lights.add(LIGHT[0], LIGHT[1], radius=LIGHT[2])
+    eng = Engine(db, EngineSettings(width=8, height=8), device="cpu")
+    eng.settings.pt = dataclasses.replace(eng.settings.pt, ray_depth=1)
+    seen = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.run_headless(2, on_frame=lambda i, img: seen.append((i, tuple(img.shape))))
+    assert [i for i, _ in seen] == [0, 1]
+    frames = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.name == "engine/frame")
+    inner = [e.time_range.start for e in prof.events() if e.name == "pt/frame"]
+    assert len(frames) == 2 and len(inner) == 2
+    assert all(any(s <= t <= e for s, e in frames) for t in inner)

@@ -13,6 +13,8 @@ events (the card's trace is checked by chip_smoke.py), and the path
 tracer, the two-phase traces and the sharded traces are held to open the
 JAX package's ranges around their launches."""
 import contextlib
+import json
+import os
 import types
 from types import SimpleNamespace
 
@@ -216,10 +218,10 @@ def test_path_tracer_tags_its_launches(cornell_tracer, sites):
         assert sites[0] == "pt_closest_pri" and sites.count("pt_any_nee") >= 2, kw
 
 
-def test_alpha_rounds_and_env_nee_carry_their_tags(sites):
-    """A textured atrium with alpha-tested cloth and an env map: the alpha
-    re-traces as pria/bnca, the shadow alpha rounds and their any-hit tail
-    as neea/enva (the JAX package's tag + "a")."""
+@pytest.fixture(scope="module")
+def textured_atrium():
+    """A textured atrium with alpha-tested cloth, normal maps and a sphere
+    light, on the CPU; a 16x32 env map; a camera down its hall."""
     model = atrium(3000)
     texture_atrium(model)
     db = SceneDatabase(BuildSettings(max_leaf_triangle_count=12, traversal_cost=4.0))
@@ -228,12 +230,24 @@ def test_alpha_rounds_and_env_nee_carry_their_tags(sites):
     db.lights.add([0.0, 10.5, 0.0], [40.0, 38.0, 35.0], radius=0.8)
     rs = np.random.default_rng(3)
     env = rs.random((16, 32, 3)).astype(np.float32) * 4.0
-    pt = PathTracer(scene, db.materials.soa(), db.lights.soa(), 12, 8,
-                    PathTracerSettings(ray_depth=2, russian_roulette=False, use_env_map=True,
-                                       env_nee=True), env_map=env, device="cpu")
-    assert pt._has_alpha and pt._env_tables is not None
     cam = Camera(position=np.array([0.0, 3.0, 24.0], np.float32), yaw=-90.0, fov_y=65.0)
-    pt.render_frame(cam)
+    return db, scene, env, cam
+
+
+def _textured_tracer(textured_atrium, w, h, **kw):
+    db, scene, env, _cam = textured_atrium
+    return PathTracer(scene, db.materials.soa(), db.lights.soa(), w, h,
+                      PathTracerSettings(ray_depth=2, russian_roulette=False, use_env_map=True,
+                                         env_nee=True, **kw), env_map=env, device="cpu")
+
+
+def test_alpha_rounds_and_env_nee_carry_their_tags(textured_atrium, sites):
+    """A textured atrium with alpha-tested cloth and an env map: the alpha
+    re-traces as pria/bnca, the shadow alpha rounds and their any-hit tail
+    as neea/enva (the JAX package's tag + "a")."""
+    pt = _textured_tracer(textured_atrium, 12, 8)
+    assert pt._has_alpha and pt._env_tables is not None
+    pt.render_frame(textured_atrium[3])
     assert set(sites) == {"pt_closest_pri", "pt_closest_pria", "pt_closest_bnc",
                           "pt_closest_bnca", "pt_closest_neea", "pt_any_neea",
                           "pt_closest_enva", "pt_any_enva"}
@@ -258,3 +272,130 @@ def test_two_phase_and_sharded_traces_carry_their_tags(cornell_tracer):
     assert set(names) == {"pt_closest_spmd"}
     names = _ranges(lambda: shard.shard_packet_any(mesh, scene)(o, d, 3.4e38))
     assert set(names) == {"pt_any_spmd"}
+
+
+# the frame's span tree (render/pathtracer.py): each span and the spans it
+# may lie directly in
+SPAN_PARENTS = {
+    "pt/frame": {None}, "pt/raygen": {"pt/frame"}, "pt/camera upload": {"pt/raygen"},
+    "pt/bounce": {"pt/frame"}, "pt/accumulate": {"pt/frame"},
+    "pt/sort": {"pt/bounce"}, "pt/closest": {"pt/bounce"}, "pt/lights": {"pt/bounce"},
+    "pt/shade": {"pt/bounce"}, "pt/nee": {"pt/bounce"}, "pt/env nee": {"pt/bounce"},
+    "pt_closest_pri": {"pt/closest"}, "pt_closest_bnc": {"pt/closest"},
+    "pt/alpha re-traces": {"pt/closest"}, "pt_closest_pria": {"pt/alpha re-traces"},
+    "pt_closest_bnca": {"pt/alpha re-traces"}, "pt/textures": {"pt/shade"},
+    "pt/shadow alpha rounds": {"pt/nee", "pt/env nee"},
+    "pt_closest_neea": {"pt/shadow alpha rounds"}, "pt_closest_enva": {"pt/shadow alpha rounds"},
+    "pt_any_neea": {"pt/nee"}, "pt_any_enva": {"pt/env nee"},
+}
+
+
+def _nesting(prof):
+    """(name, is a span, the innermost span around it) of each event of a
+    CPU trace, by time containment (the profiler's raw events: building its
+    FunctionEvents takes seconds for a frame's 40,000)."""
+    evs = sorted((e.start_ns(), -e.end_ns(), e.name(), e.is_user_annotation())
+                 for e in prof.profiler.kineto_results.events())
+    stack, out = [], []
+    for _start, neg_end, name, is_span in evs:
+        while stack and stack[-1][0] < -neg_end:
+            stack.pop()
+        out.append((name, is_span, stack[-1][1] if stack else None))
+        if is_span:
+            stack.append((-neg_end, name))
+    return out
+
+
+def test_a_frame_holds_the_documented_span_tree(textured_atrium, monkeypatch):
+    """One 32x16 frame (depth 2, sorting, NEE and env NEE, textures and
+    alpha; the walks capped at 16 steps to keep the CPU trace short) under
+    torch.profiler: every span of the tree, each in its documented parent,
+    no operation directly under pt/frame or pt/bounce, and the frame's and
+    the bounces' indices as their spans' args."""
+    pt = _textured_tracer(textured_atrium, 32, 16, do_ray_sorting=True, max_trace_steps=16)
+    opened = []
+    real = profiling.record_function
+
+    def spy(name, args=None):
+        opened.append((name, args))
+        return real(name, args)
+
+    monkeypatch.setattr(profiling, "record_function", spy)
+    frame = pt._frame
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pt.render_frame(textured_atrium[3])
+    events = _nesting(prof)
+    spans = [(name, parent) for name, is_span, parent in events if is_span]
+    assert {name for name, _ in spans} == set(SPAN_PARENTS)
+    for name, parent in spans:
+        assert parent in SPAN_PARENTS[name], (name, parent)
+    assert [name for name, _ in spans].count("pt/bounce") == 2
+    assert [name for name, _ in spans].count("pt/sort") == 1  # bounce 1 only
+    stray = {name for name, is_span, parent in events
+             if not is_span and parent in ("pt/frame", "pt/bounce")}
+    assert not stray, stray
+    assert ("pt/frame", str(frame)) in opened
+    assert [a for n, a in opened if n == "pt/bounce"] == ["0", "1"]
+
+
+def test_a_frame_opens_no_range_without_a_profiler(textured_atrium, monkeypatch):
+    """With no profiler active, no span of a frame (the call sites' either)
+    calls record_function."""
+    def refuse(*args, **kw):
+        raise AssertionError("record_function called with no profiler active")
+
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    assert not profiling.tracing()
+    pt = _textured_tracer(textured_atrium, 32, 16, do_ray_sorting=True, max_trace_steps=16)
+    pt.render_frame(textured_atrium[3])
+    with profiling.pass_scope("test/span", 3), profiling.call_site(True, "nee"):
+        pass
+
+
+def test_counter_rows_report_reset_and_log(monkeypatch):
+    """report() sums each call site's row over the devices' buffers and
+    leaves out rows that counted no ray; reset() zeroes the rows in place;
+    log_report() logs each site's rays and work a ray."""
+    monkeypatch.setattr(profiling, "_counters", {})
+    monkeypatch.setattr(profiling, "_counter_rows", {})
+    cpu = torch.device("cpu")
+    profiling.counter_row(cpu, "pt_closest_pri").add_(torch.tensor([10, 40, 90]))
+    profiling.counter_row(cpu, "pt_any_nee").add_(torch.tensor([5, 15, 20]))
+    profiling.counter_row(cpu, "pt_closest_pri").add_(torch.tensor([2, 8, 6]))
+    profiling.counter_row(cpu, "pt_closest_bnc")  # a row that never counts
+    # a second device's buffer (a shard's), as the kernel would fill it
+    profiling._counters["other"] = torch.zeros_like(profiling._counters[cpu])
+    profiling._counters["other"][profiling._counter_rows["pt_any_nee"]] += torch.tensor([1, 3, 4])
+    assert profiling.report() == {"pt_closest_pri": {"rays": 12, "nodes": 48, "tris": 96},
+                                  "pt_any_nee": {"rays": 6, "nodes": 18, "tris": 24}}
+    lines = []
+    monkeypatch.setattr(profiling.log, "info", lambda fmt, *args: lines.append(fmt % args))
+    profiling.log_report()
+    assert len(lines) == 2 and lines[1].startswith("pt_closest_pri")
+    assert "12 rays" in lines[1] and "4.00 nodes/ray" in lines[1] and "8.00 tris/ray" in lines[1]
+    buf = profiling._counters[cpu]
+    profiling.reset()
+    assert profiling.report() == {} and profiling._counters[cpu] is buf
+    for k in range(profiling.MAX_COUNTER_SITES - 3):
+        profiling.counter_row(cpu, f"pt_any_{k}")
+    with pytest.raises(RuntimeError):
+        profiling.counter_row(cpu, "pt_any_one_more")
+
+
+def test_start_trace_writes_the_frame_spans(cornell_tracer, tmp_path):
+    """The operator's route: start_trace, a frame, stop_trace; the Chrome
+    trace it writes holds the frame's spans."""
+    db, scene, cam = cornell_tracer
+    pt = PathTracer(scene, db.materials.soa(), db.lights.soa(), 16, 16,
+                    PathTracerSettings(ray_depth=1), device="cpu")
+    profiling.start_trace(str(tmp_path))
+    try:
+        pt.render_frame(cam)
+    finally:
+        path = profiling.stop_trace()
+    assert os.path.dirname(path) == str(tmp_path)
+    with open(path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"pt/frame", "pt/raygen", "pt/camera upload", "pt/bounce", "pt/closest",
+            "pt_closest_pri", "pt/lights", "pt/shade", "pt/nee", "pt_any_nee",
+            "pt/accumulate"} <= names
