@@ -16,6 +16,9 @@ hits the neighbour across an edge, as tests/test_torch_pipeline.py notes
 of its AOVs)."""
 import numpy as np
 import pytest
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 

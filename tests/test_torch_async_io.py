@@ -32,6 +32,9 @@ from idkengine_tpu_torch.scene.scene_db import SceneDatabase
 
 from test_torch_gltf import scene_json, write_asset
 from test_torch_trace import jax_core  # noqa: F401
+from worker_threads import share_cores
+
+share_cores()
 
 
 def test_main_thread_queue_lazy_one_per_pump():

@@ -5,6 +5,9 @@ ray counts); sorting on against sorting off; instances of another type than
 InstanceSet refused."""
 import numpy as np
 import pytest
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 import torch  # noqa: E402

@@ -14,6 +14,9 @@ import sys
 import numpy as np
 import pytest
 import torch
+from worker_threads import share_cores
+
+share_cores()
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import WARP, lane_utilization, warp_trips  # noqa: E402

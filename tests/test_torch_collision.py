@@ -25,6 +25,9 @@ from idkengine_tpu_torch.scene.procedural import cornell_box
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase
 
 from test_torch_trace import jax_core  # noqa: F401
+from worker_threads import share_cores
+
+share_cores()
 
 REL = 1e-6
 BOX_LO, BOX_HI = np.float32([20, 20, 20]), np.float32([535, 530, 540])

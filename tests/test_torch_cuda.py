@@ -41,6 +41,9 @@ from idkengine_tpu_torch.ops import voxel_scatter as vs
 from idkengine_tpu_torch.render import Camera, PathTracer, PathTracerSettings
 from idkengine_tpu_torch.scene.procedural import atrium
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase
+from worker_threads import share_cores
+
+share_cores()
 
 pytestmark = pytest.mark.cuda
 

@@ -16,6 +16,9 @@ JAX one a tile-swizzled shuffle of it (a reference fault, not copied).
 """
 import numpy as np
 import pytest
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

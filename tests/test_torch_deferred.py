@@ -12,6 +12,9 @@ contract of tests/test_golden.py, RMSE <= 1e-3.
 import numpy as np
 import pytest
 import torch
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

@@ -13,6 +13,9 @@ their history and PCF culls the cube faces anew."""
 import numpy as np
 import pytest
 import torch
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 

@@ -17,6 +17,9 @@ from fractions import Fraction
 
 import numpy as np
 import pytest
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

@@ -34,6 +34,9 @@ from idkengine_tpu_torch.scene import gltf, meshopt
 from idkengine_tpu_torch.scene.model import MeshPrimitive
 
 from test_torch_ktx2 import ktx2_bytes
+from worker_threads import share_cores
+
+share_cores()
 
 
 class Buffer:

@@ -23,6 +23,9 @@ from idkengine_tpu_torch.render.vxgi import VoxelGrid
 from idkengine_tpu_torch.scene.scene_db import SceneDatabase
 from idkengine_tpu_torch.tools import (_probe, bench_dual, bench_mxu_leaf, bench_prims,
                                        bench_reduce, bench_slab)
+from worker_threads import share_cores
+
+share_cores()
 
 PROBES = (bench_slab, bench_mxu_leaf, bench_reduce, bench_dual, bench_prims)
 

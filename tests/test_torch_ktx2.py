@@ -22,6 +22,9 @@ import pytest
 from idkengine_tpu.scene import basisu as j_basisu
 from idkengine_tpu.scene import ktx2 as j_ktx2
 from idkengine_tpu_torch.scene import basisu, ktx2
+from worker_threads import share_cores
+
+share_cores()
 
 IDENTIFIER = b"\xabKTX 20\xbb\r\n\x1a\n"
 FORMATS = {"rgba8": (37, 4), "srgba8": (43, 4), "rgb8": (23, 3), "srgb8": (29, 3),

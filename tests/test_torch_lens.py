@@ -14,6 +14,9 @@ below); the pinhole part of the rays is bit-equal
 import numpy as np
 import pytest
 import torch
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

@@ -15,6 +15,9 @@ op as the port does, and agree to the same tolerance or exactly."""
 import numpy as np
 import pytest
 import torch
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

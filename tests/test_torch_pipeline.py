@@ -23,6 +23,9 @@ the pipeline's) and one other combination.
 """
 import numpy as np
 import pytest
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

@@ -21,6 +21,9 @@ import pytest
 import torch
 
 from idkengine_tpu_torch.tools import _probe, bench_dual, bench_prims
+from worker_threads import share_cores
+
+share_cores()
 
 LANES_PER_THREAD = 4
 

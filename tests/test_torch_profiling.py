@@ -22,6 +22,9 @@ import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 

@@ -2,6 +2,9 @@
 and triangle arrays, and the CUDA kernel's node layout describes that tree."""
 import numpy as np
 import pytest
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 

@@ -12,6 +12,9 @@ eagerly, and the traces are bit-equal, tests/test_torch_trace.py)."""
 import numpy as np
 import pytest
 import torch
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

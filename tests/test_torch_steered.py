@@ -8,6 +8,9 @@ Tolerance: as test_torch_trace.py.
 """
 import numpy as np
 import pytest
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

@@ -35,6 +35,9 @@ from jax.experimental import pallas as pl
 
 from idkengine_tpu_torch.tools import (bench_dual, bench_mxu_leaf, bench_prims, bench_reduce,
                                        bench_slab)
+from worker_threads import share_cores
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PALLAS_CALL = pl.pallas_call

@@ -14,6 +14,9 @@ Tolerances: as test_torch_two_phase.py.
 """
 import numpy as np
 import pytest
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

@@ -18,6 +18,9 @@ table was measured so, PERF.md).
 """
 import numpy as np
 import pytest
+from worker_threads import share_cores
+
+share_cores()
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
