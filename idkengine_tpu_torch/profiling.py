@@ -10,7 +10,9 @@ clock with the device's kernels and copies, so a trace puts each device
 operation, and each idle gap of the device, under the innermost span
 around the host work. While tracing, the one-level trace kernel also counts
 its work (rays, 4-wide node records visited, triangles tested) per call
-site into a small device buffer: `report`, `reset`, `log_report`.
+site into a small device buffer: `report`, `reset`, `log_report`; and the
+deferred lighting pass counts its shadow rays and those cast from pixels
+with no surface: `shadow_report`.
 
 The operator's route: `start_trace()`, N frames, `stop_trace()`, then open
 the returned Chrome-trace file in Perfetto (ui.perfetto.dev) or
@@ -147,8 +149,9 @@ def report() -> dict[str, dict[str, int]]:
 
 
 def reset():
-    """Zero the counters (their buffers stay allocated)."""
-    for buf in _counters.values():
+    """Zero the traversal and shadow-ray counters (their buffers stay
+    allocated)."""
+    for buf in (*_counters.values(), *_shadow_counts.values()):
         buf.zero_()
 
 
@@ -156,6 +159,41 @@ def log_report():
     for site, c in sorted(report().items()):
         log.info("%-18s %12d rays %8.2f nodes/ray %8.2f tris/ray", site, c["rays"],
                  c["nodes"] / c["rays"], c["tris"] / c["rays"])
+
+
+# ---------------------------------------------------------------------------
+# Shadow-ray counters (render/deferred.py's lighting pass), apart from the
+# traversal rows of `report`
+# ---------------------------------------------------------------------------
+
+SHADOW_FIELDS = ("rays", "sky_rays")
+_shadow_counts: dict[torch.device, torch.Tensor] = {}  # (2,) int64 a device
+
+
+def count_shadow_rays(t_max: torch.Tensor, surface: torch.Tensor):
+    """While tracing(), and only then: add one shadow trace's live rays
+    (t_max > 0) and those among them cast from pixels with no surface
+    (`surface` false) to the counts of t_max's device, on the device, with
+    no synchronize. Each device's counts are allocated, zeroed, at their
+    first use."""
+    if not _profiler_enabled():
+        return
+    buf = _shadow_counts.get(t_max.device)
+    if buf is None:
+        buf = _shadow_counts[t_max.device] = torch.zeros(len(SHADOW_FIELDS), dtype=torch.int64,
+                                                         device=t_max.device)
+    live = t_max > 0
+    buf += torch.stack([live.sum(), (live & ~surface).sum()])
+
+
+def shadow_report() -> dict[str, int]:
+    """{"rays", "sky_rays"} of the lighting pass's shadow traces, summed over
+    the devices since the last reset; {} before any count. Reading waits for
+    each device's counts (one synchronize a device)."""
+    if not _shadow_counts:
+        return {}
+    total = sum(buf.cpu() for buf in _shadow_counts.values()).tolist()
+    return dict(zip(SHADOW_FIELDS, total))
 
 
 # ---------------------------------------------------------------------------

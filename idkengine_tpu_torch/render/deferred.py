@@ -14,6 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..profiling import count_shadow_rays
 from ..utils import rng as rng_mod
 from . import sampling, shading
 
@@ -27,13 +28,18 @@ class DeferredSettings:
     ambient: float = 0.03  # flat ambient when VXGI is off (ref: Impl.glsl)
 
 
-def _light_visibility(pos, n, l_pos, l_r, dist, occlusion_fn, state, settings):
-    """Mean unoccluded share of `shadow_samples` rays toward a sphere light."""
+def _light_visibility(pos, n, l_pos, l_r, dist, occlusion_fn, state, settings, surface=None):
+    """Mean unoccluded share of `shadow_samples` rays toward a sphere light;
+    with `surface` (the G-buffer's mask), the rays are counted under a
+    profiler (profiling.count_shadow_rays)."""
     acc = torch.zeros(pos.shape[0], dtype=torch.float32, device=pos.device)
     for _ in range(settings.shadow_samples):
         state, u = rng_mod.uniform2(state)
         sdir, _, _ = sampling.sphere_light_sample(pos, l_pos, l_r, u)
-        occ = occlusion_fn(pos + n * 1e-3, sdir, dist - l_r - 1e-3)
+        t_max = dist - l_r - 1e-3
+        if surface is not None:
+            count_shadow_rays(t_max, surface)
+        occ = occlusion_fn(pos + n * 1e-3, sdir, t_max)
         acc = acc + 1.0 - occ.to(torch.float32)
     return acc / settings.shadow_samples, state
 
@@ -109,7 +115,7 @@ def shade_deferred(gbuf, lights, n_lights: int, cam_origin, occlusion_fn,
             vis = pcf_fn(li, pos)
         elif shadowed:
             vis, state = _light_visibility(pos, n, l_pos, l_r, dist, occlusion_fn, state,
-                                           settings)
+                                           settings, surface=mask)
         brdf_cos = shading.ggx_brdf(n, view, ldir, alb, met, rough)
         # sphere-light irradiance ~ L_e * pi R^2 / d^2 (consistent with the
         # path tracer's area-emitter radiance convention)

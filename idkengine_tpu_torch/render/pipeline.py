@@ -161,7 +161,12 @@ class DeferredPipeline:
 
     # -- frame graph ---------------------------------------------------
     def render_frame(self, camera: Camera) -> torch.Tensor:
-        """Returns the tonemapped (H,W,3) [0,1] image."""
+        """Returns the tonemapped (H,W,3) [0,1] image; the frame is the span
+        deferred/frame."""
+        with pass_scope("deferred/frame"):
+            return self._render_frame(camera)
+
+    def _render_frame(self, camera: Camera) -> torch.Tensor:
         s = self.settings
         _check_settings(s, self.width, self.height)
         rs = max(1, int(s.render_scale))
@@ -170,8 +175,14 @@ class DeferredPipeline:
         # role, ref: RasterPipeline.cs:611-624)
         w, h = self.width // rs, self.height // rs
         dev = self.device
-        soa = self.db.lights.soa()
-        lights = {k: torch.as_tensor(soa[k], device=dev) for k in ("pos", "radius", "radiance")}
+        cam_params = camera.ray_params(w, h)
+        # the frame's host-to-device copies: the lights, the camera for SSAO
+        with pass_scope("deferred/uploads"):
+            soa = self.db.lights.soa()
+            lights = {k: torch.as_tensor(soa[k], device=dev)
+                      for k in ("pos", "radius", "radiance")}
+            cam = ({k: torch.as_tensor(cam_params[k], device=dev)
+                    for k in ("origin", "forward", "right", "up")} if s.use_ssao else None)
         n_lights = len(self.db.lights.lights)
         scene = self.db.device_scene
         # the callbacks trace the scene of this frame, never an older one
@@ -181,7 +192,6 @@ class DeferredPipeline:
         # TAA jitter (Halton, ref: RasterPipeline.cs:266-299)
         jitter = (mu.halton_2d(16)[self.frame % 16] if (s.use_taa or rs > 1)
                   else np.array([0.5, 0.5], np.float32))
-        cam_params = camera.ray_params(w, h)
         prev_cam = self._prev_cam_params or cam_params
 
         # each pass is a named range for torch.profiler (free when no
@@ -206,8 +216,6 @@ class DeferredPipeline:
         ao = None
         if s.use_ssao:
             with pass_scope("deferred/SSAO"):
-                cam = {k: torch.as_tensor(cam_params[k], device=dev)
-                       for k in ("origin", "forward", "right", "up")}
                 rel = gbuf.position - cam["origin"]
                 view_z = -(rel * cam["forward"]).sum(-1)
                 view_pos = torch.stack([(rel * cam["right"]).sum(-1),
